@@ -1,0 +1,142 @@
+"""Port vs reference: the STARK prover/verifier on FibonacciAir.
+
+The same trace, publics and StarkConfig go through vectorx_tpu.stark (JAX,
+CPU) and vectorx_tpu_torch.stark (torch, CPU). The proofs' serialized
+payloads must be equal byte for byte, each verifier must accept the other
+package's proof, and the port verifier must reject tampered proofs.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from vectorx_tpu.field import goldilocks as jgl
+from vectorx_tpu.stark import prover as jprover
+from vectorx_tpu.stark import serialize as jserialize
+from vectorx_tpu.stark import verifier as jverifier
+from vectorx_tpu.stark.air import FibonacciAir as JFibonacciAir
+from vectorx_tpu_torch import convert
+from vectorx_tpu_torch.field import goldilocks as gl
+from vectorx_tpu_torch.stark import prover, serialize, verifier
+from vectorx_tpu_torch.stark.air import Air, FibonacciAir, check_constraints
+
+torch.set_num_threads(1)
+
+LOG_N = 5
+# the __graft_entry__.entry config, and the same with grinding
+CONFIGS = {
+    "entry": dict(rate_bits=2, num_queries=6, final_poly_len=4),
+    "pow8": dict(rate_bits=2, num_queries=6, final_poly_len=4, pow_bits=8),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """JAX proofs (the expensive part of this module), built once."""
+    trace, publics = JFibonacciAir.make_trace(1 << LOG_N)
+    pubs = [jgl.to_fp(p) for p in publics]
+    proofs = {name: jprover.prove(JFibonacciAir(), trace, pubs,
+                                  jprover.StarkConfig(**kw))
+              for name, kw in CONFIGS.items()}
+    return proofs, pubs
+
+
+@pytest.fixture(scope="module")
+def port_side():
+    trace, publics = FibonacciAir.make_trace(1 << LOG_N)
+    pubs = [gl.to_fp(p) for p in publics]
+    proofs = {name: prover.prove(FibonacciAir(), trace, pubs,
+                                 prover.StarkConfig(**kw))
+              for name, kw in CONFIGS.items()}
+    return proofs, pubs
+
+
+def _jax_payload(proof) -> bytes:
+    return serialize.split_payload(jserialize.serialize_proof(proof))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_payload_parity_with_reference(name, jax_side, port_side):
+    assert serialize.payload(port_side[0][name]) == _jax_payload(jax_side[0][name])
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_port_verifier_accepts_port_and_reference_proofs(name, jax_side, port_side):
+    cfg = prover.StarkConfig(**CONFIGS[name])
+    proof, pubs = port_side[0][name], port_side[1]
+    assert verifier.verify(FibonacciAir(), proof, pubs, LOG_N, cfg)
+    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jax_side[0][name])]
+    from_jax = convert.proof_from_pairs(list(zip(leaves[0::2], leaves[1::2])), proof)
+    assert verifier.verify(FibonacciAir(), from_jax, pubs, LOG_N, cfg)
+
+
+def test_reference_verifier_accepts_port_proof(jax_side, port_side):
+    jproof = jax_side[0]["entry"]
+    pairs = convert.proof_to_pairs(port_side[0]["entry"])
+    leaves = [jax.numpy.asarray(x) for pair in pairs for x in pair]
+    rebuilt = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(jproof), leaves)
+    assert bool(jverifier.verify(JFibonacciAir(), rebuilt, jax_side[1], LOG_N,
+                                 jprover.StarkConfig(**CONFIGS["entry"])))
+
+
+def _tampered(proof, field, index):
+    import copy
+    bad = copy.copy(proof)
+    t = getattr(proof, field).clone()
+    t.view(-1)[index] ^= 1
+    setattr(bad, field, t)
+    return bad
+
+
+@pytest.mark.parametrize("field", ["trace_rows_a", "quot_rows_b", "trace_cap"])
+def test_port_verifier_rejects_tampered_proof(field, port_side):
+    cfg = prover.StarkConfig(**CONFIGS["pow8"])
+    bad = _tampered(port_side[0]["pow8"], field, 1)
+    assert not verifier.verify(FibonacciAir(), bad, port_side[1], LOG_N, cfg)
+
+
+def test_port_verifier_rejects_wrong_public_and_nonce(port_side):
+    cfg = prover.StarkConfig(**CONFIGS["pow8"])
+    proof, pubs = port_side[0]["pow8"], port_side[1]
+    wrong = list(pubs[:2]) + [gl.add(pubs[2], gl.ones(()))]
+    assert not verifier.verify(FibonacciAir(), proof, wrong, LOG_N, cfg)
+    import copy
+    bad = copy.copy(proof)
+    bad.fri_proof = copy.copy(proof.fri_proof)
+    bad.fri_proof.pow_nonce = proof.fri_proof.pow_nonce + 1
+    assert not verifier.verify(FibonacciAir(), bad, pubs, LOG_N, cfg)
+
+
+def test_serialize_round_trip(port_side):
+    cfg = prover.StarkConfig(**CONFIGS["entry"])
+    proof = port_side[0]["entry"]
+    data = serialize.serialize_proof(proof)
+    like = serialize.empty_proof_like_shapes(FibonacciAir(), cfg, LOG_N)
+    back = serialize.deserialize_proof(data, like)
+    assert serialize.payload(back) == serialize.payload(proof)
+    assert verifier.verify(FibonacciAir(), back, port_side[1], LOG_N, cfg)
+    with pytest.raises(ValueError):
+        serialize.deserialize_proof(data[:-4], like)
+
+
+def test_check_constraints_on_trace():
+    trace, publics = FibonacciAir.make_trace(16)
+    pubs = [gl.to_fp(p) for p in publics]
+    assert check_constraints(FibonacciAir(), trace, pubs)
+    bad = trace.clone()
+    bad[1, 5] = gl.add(bad[1, 5], gl.ones(()))
+    assert not check_constraints(FibonacciAir(), bad, pubs)
+
+
+def test_prove_refuses_lookup_airs():
+    class LookupAir(FibonacciAir):
+        def lookup_range_columns(self):
+            return [0]
+
+    trace, publics = FibonacciAir.make_trace(16)
+    with pytest.raises(NotImplementedError):
+        prover.prove(LookupAir(), trace, [gl.to_fp(p) for p in publics],
+                     prover.StarkConfig(rate_bits=1, num_queries=2,
+                                        final_poly_len=2))

@@ -1,0 +1,1 @@
+"""hashes layer of vectorx_tpu_torch (see the package docstring)."""

@@ -1,0 +1,246 @@
+"""AIR (algebraic intermediate representation) interface for the STARK.
+
+An AIR defines a trace layout plus constraint polynomials over (local_row,
+next_row, publics). The same constraint code runs in two rings:
+
+- ``BaseVecAlgebra``: base-field vectors over the whole LDE domain (prover —
+  every constraint evaluates on all N_lde points at once);
+- ``ExtAlgebra``:     GF(p^2) scalars at the out-of-domain point ζ (verifier
+  ALI consistency check).
+
+A base-ring element is one tensor; an extension-ring element is a
+``(re, im)`` tuple. Transition constraints hold on rows 0..N-2 (divisor
+(x^N-1)/(x-g^{N-1})), ``first``/``last`` boundary constraints at row 0 /
+N-1 (divisors x-1, x-g^{N-1}).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ..field import goldilocks as gl
+from ..field import ext
+
+
+class BaseVecAlgebra:
+    """Elements: Fp tensors of a fixed shape (the LDE domain)."""
+
+    def __init__(self, shape, device=None):
+        self.shape = tuple(shape)
+        self.device = device
+
+    def add(self, a, b):
+        return gl.add(a, b)
+
+    def sub(self, a, b):
+        return gl.sub(a, b)
+
+    def mul(self, a, b):
+        return gl.mul(a, b)
+
+    def constant(self, c: int):
+        return gl.full((), c, self.device).expand(self.shape)
+
+    def lift(self, scalar: gl.Fp):
+        """Broadcast a scalar Fp (shape ()) into the domain shape."""
+        return scalar.expand(self.shape)
+
+    def one(self):
+        return self.constant(1)
+
+    def zero(self):
+        return self.constant(0)
+
+
+class ExtAlgebra:
+    """Elements: Fp2 scalars (shape-() components)."""
+
+    def __init__(self, device=None):
+        self.device = device
+
+    def add(self, a, b):
+        return ext.add(a, b)
+
+    def sub(self, a, b):
+        return ext.sub(a, b)
+
+    def mul(self, a, b):
+        return ext.mul(a, b)
+
+    def constant(self, c: int):
+        return ext.from_base(gl.full((), c, self.device))
+
+    def lift(self, scalar: gl.Fp):
+        return ext.from_base(scalar)
+
+    def one(self):
+        return self.constant(1)
+
+    def zero(self):
+        return self.constant(0)
+
+
+# -- groups: ring elements stacked along a leading axis ------------------------
+# An extension element is a (re, im) tuple, a base element a tensor; the
+# helpers map over the tuple for the former.
+
+def _map(f, e):
+    return (f(e[0]), f(e[1])) if isinstance(e, tuple) else f(e)
+
+
+def stack_group(elems):
+    elems = list(elems)
+    if isinstance(elems[0], tuple):
+        return (torch.stack([e[0] for e in elems]),
+                torch.stack([e[1] for e in elems]))
+    return torch.stack(elems)
+
+
+def roll_group(e, k: int):
+    """Circular roll along the group axis (element i of the result is
+    element i-k of the input)."""
+    return _map(lambda x: torch.roll(x, k, dims=0), e)
+
+
+def slice_group(e, a: int, b: int):
+    return _map(lambda x: x[a:b], e)
+
+
+def index_group(e, i: int):
+    """Single element of a group (a scalar ring element)."""
+    return _map(lambda x: x[i], e)
+
+
+def sum_group(e, alg=None):
+    """Σ over the group axis -> scalar ring element."""
+    return _map(lambda x: gl.sum_mod(x, axis=0), e)
+
+
+class Air:
+    """Subclass and define the trace + constraints.
+
+    Conventions:
+    - ``local``/``next_row`` are lists of ring elements, one per column.
+    - ``publics`` is a list of Fp scalars (shape ()); use ``alg.lift``.
+    - ``consts``/``consts_next`` are lists of ring elements for the AIR's
+      public constant columns (``constant_columns``): known to both sides,
+      committed once into the verifying key (prover.constant_vk).
+    - every constraint must have total degree <= max_constraint_degree.
+    """
+
+    num_cols: int = 0
+    max_constraint_degree: int = 3
+
+    def ram_multiset(self):
+        """None, or the pair-multiset memory argument (not in this port)."""
+        return None
+
+    def lookup_range_columns(self) -> List[int]:
+        """Trace column indices range-checked via LogUp (not in this port)."""
+        return []
+
+    def constant_columns(self, n_rows: int):
+        """-> (k, n_rows) numpy int array (possibly k = 0)."""
+        return np.zeros((0, n_rows), dtype=np.uint64)
+
+    def transition(self, alg, local: List, next_row: List, publics: List,
+                   consts: List = (), consts_next: List = ()) -> List:
+        return []
+
+    def transition_iter(self, alg, local: List, next_row: List,
+                        publics: List, consts: List = (),
+                        consts_next: List = ()):
+        """Streaming form: yields the same constraints in the same order as
+        ``transition``."""
+        yield from self.transition(alg, local, next_row, publics, consts,
+                                   consts_next)
+
+    def first_row(self, alg, local: List, publics: List,
+                  consts: List = ()) -> List:
+        return []
+
+    def last_row(self, alg, local: List, publics: List,
+                 consts: List = ()) -> List:
+        return []
+
+    def num_constraints(self) -> int:
+        """Total constraint count (transition + first + last)."""
+        alg = ExtAlgebra()
+        dummy = [alg.zero() for _ in range(self.num_cols)]
+        k = self.constant_columns(2).shape[0]
+        dc = [alg.zero() for _ in range(k)]
+        pubs = [gl.zeros(()) for _ in range(getattr(self, "num_publics", 0))]
+        return (len(self.transition(alg, dummy, dummy, pubs, dc, dc))
+                + len(self.first_row(alg, dummy, pubs, dc))
+                + len(self.last_row(alg, dummy, pubs, dc)))
+
+
+def check_constraints(air: Air, trace: gl.Fp, publics) -> bool:
+    """Evaluate every constraint directly on the trace domain (no LDE, no
+    commitment): transition constraints must vanish on rows 0..N-2,
+    first/last on their rows."""
+    n = trace.shape[1]
+    alg = BaseVecAlgebra((n,), trace.device)
+    local = [trace[c] for c in range(air.num_cols)]
+    nxt_all = torch.roll(trace, -1, dims=1)
+    nxt = [nxt_all[c] for c in range(air.num_cols)]
+    cvals = np.asarray(air.constant_columns(n), dtype=np.object_)
+    if cvals.shape[0]:
+        cfp = gl.to_fp(cvals, trace.device)
+        consts = list(cfp)
+        consts_next = list(torch.roll(cfp, -1, dims=1))
+    else:
+        consts, consts_next = [], []
+    ok = True
+    for c in air.transition(alg, local, nxt, publics, consts, consts_next):
+        ok = ok and bool(torch.all(c[..., :n - 1] == 0))
+    for c in air.first_row(alg, local, publics, consts):
+        ok = ok and bool(torch.all(c[..., 0] == 0))
+    for c in air.last_row(alg, local, publics, consts):
+        ok = ok and bool(torch.all(c[..., n - 1] == 0))
+    return ok
+
+
+class FibonacciAir(Air):
+    """Toy AIR: two columns (a, b); step (a, b) -> (b, a+b).
+
+    Publics: [a0, b0, res] with res = a at the last row."""
+
+    num_cols = 2
+    num_publics = 3
+
+    def transition(self, alg, local, next_row, publics, consts=(), consts_next=()):
+        a, b = local
+        an, bn = next_row
+        return [
+            alg.sub(an, b),                    # a' = b
+            alg.sub(bn, alg.add(a, b)),        # b' = a + b
+        ]
+
+    def first_row(self, alg, local, publics, consts=()):
+        a, b = local
+        return [
+            alg.sub(a, alg.lift(publics[0])),
+            alg.sub(b, alg.lift(publics[1])),
+        ]
+
+    def last_row(self, alg, local, publics, consts=()):
+        a, b = local
+        return [alg.sub(a, alg.lift(publics[2]))]
+
+    @staticmethod
+    def make_trace(n: int, a0: int = 0, b0: int = 1, device=None):
+        """Host-side trace builder -> ((2, n) Fp trace, publics list)."""
+        P = gl.MODULUS
+        a, b = a0 % P, b0 % P
+        col_a, col_b = [], []
+        for _ in range(n):
+            col_a.append(a)
+            col_b.append(b)
+            a, b = b, (a + b) % P
+        trace = gl.to_fp([col_a, col_b], device)
+        publics = [a0 % P, b0 % P, col_a[-1]]
+        return trace, publics
