@@ -1,4 +1,5 @@
-"""The port on the card: the CUDA Poseidon kernel and a prove through it.
+"""The port on the card: the CUDA Poseidon kernels (permute, duplex,
+sponge_rows) against their plain versions, and a prove through them.
 
 Every test here is marked ``cuda`` and skips without a card (a CUDA kernel
 has no CPU mode). The file imports neither JAX nor the JAX package, so it
@@ -11,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+import vectorx_tpu_torch as vt
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.hashes import poseidon as ps
 from vectorx_tpu_torch.ops import poseidon_cuda
 from vectorx_tpu_torch.stark import prover, serialize, verifier
 from vectorx_tpu_torch.stark.air import FibonacciAir
+from vectorx_tpu_torch.stark.challenger import Challenger
 
 from oracle import P
 
@@ -33,20 +36,67 @@ def _states(seed, n):
     rng = np.random.default_rng(seed)
     s = rng.integers(0, P, (n, 12), dtype=np.uint64)
     s[0] = P - 1
-    s[1] = 0
+    s[1:2] = 0
     s[2::7] = P - 1 - (np.arange(len(s[2::7]))[:, None] % 8).astype(np.uint64)
     return torch.from_numpy(np.ascontiguousarray(s).view(np.int64))
 
 
-def test_kernel_matches_plain_on_card(card):
-    x = _states(21, 4099).to(card)
-    before = poseidon_cuda.launches
+def test_default_device_is_the_card(card):
+    assert vt.default_device() == torch.device("cuda", torch.cuda.current_device())
+    assert gl.zeros((3,)).is_cuda and Challenger.new().state.is_cuda
+    assert vt.default_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 28, 33, 4099, 20000])
+def test_kernel_matches_plain_on_card(card, n):
+    """Batches on both sides of the dispatch between the cooperative and
+    the thread-per-state kernel."""
+    x = _states(21, n).to(card)
+    before = poseidon_cuda.launches["permute"]
     got = poseidon_cuda.permute(x)
-    assert poseidon_cuda.launches == before + 1
+    assert poseidon_cuda.launches["permute"] == before + 1
     assert torch.equal(got, ps.permute_plain(x))
     assert torch.equal(ps.permute(x), got)
-    want = [ps.permute_ints([int(v) for v in row]) for row in gl.to_u64(x[:16])]
-    assert gl.to_u64(got[:16]).tolist() == want
+    for coop in (False, True):
+        assert torch.equal(poseidon_cuda._permute(x, coop), got)
+    rows = min(n, 16)
+    want = [ps.permute_ints([int(v) for v in row]) for row in gl.to_u64(x[:rows])]
+    assert gl.to_u64(got[:rows]).tolist() == want
+
+
+@pytest.mark.parametrize("tail", [0, 1, 7])
+@pytest.mark.parametrize("chunks", [0, 1, 2, 7, 100])
+def test_duplex_matches_plain_on_card(card, chunks, tail):
+    flat = _states(31, 80).reshape(-1)
+    state = flat[:12].to(card)
+    data = flat[12:12 + chunks * 8 + tail].to(card)
+    for flush, n_squeeze in ((False, 0), (True, 0), (True, 1), (True, 9),
+                             (False, 28)):
+        before = poseidon_cuda.launches["duplex"]
+        got = ps.duplex(state, data, flush, n_squeeze)
+        want = ps.duplex_plain(state, data, flush, n_squeeze)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        runs = chunks + (1 if flush and tail else 0) + n_squeeze
+        assert poseidon_cuda.launches["duplex"] == before + (1 if runs else 0)
+
+
+@pytest.mark.parametrize("n", [1, 28, 5000])
+@pytest.mark.parametrize("width", [0, 4, 8, 9, 135])
+def test_sponge_rows_matches_plain_on_card(card, width, n):
+    rng = np.random.default_rng(width + n)
+    rows = rng.integers(0, P, (n, width), dtype=np.uint64)
+    row_major = torch.from_numpy(rows.view(np.int64)).to(card)
+    col_major = row_major.t().contiguous().t()        # (n, w) view of (w, n)
+    want = ps.hash_many_plain(row_major)
+    for x in (row_major, col_major):
+        before = poseidon_cuda.launches["sponge_rows"]
+        assert torch.equal(ps.hash_many(x), want)
+        assert poseidon_cuda.launches["sponge_rows"] == before + 1
+        for coop in (False, True):
+            assert torch.equal(poseidon_cuda._sponge_rows(x, coop), want)
+    if width:
+        assert torch.equal(ps.hash_many(row_major.reshape(n, 1, width)),
+                           want.reshape(n, 1, 4))
 
 
 def test_kernel_wrapper_rejects_what_it_cannot_launch_on_card(card):
@@ -57,18 +107,37 @@ def test_kernel_wrapper_rejects_what_it_cannot_launch_on_card(card):
         poseidon_cuda.permute(x[:, :8].contiguous())
     with pytest.raises(ValueError):
         poseidon_cuda.permute(x.t().contiguous().t())
+    state, data = x[0], x[1:].reshape(-1)
+    with pytest.raises(TypeError):
+        poseidon_cuda.duplex(state.to(torch.int32), data, False, 0)
+    with pytest.raises(ValueError):
+        poseidon_cuda.duplex(state.cpu(), data, False, 0)      # a CPU tensor
+    with pytest.raises(ValueError):
+        poseidon_cuda.duplex(state, data.cpu(), False, 0)
+    with pytest.raises(ValueError):
+        poseidon_cuda.duplex(x[:, 0], data, False, 0)          # wrong shape
+    with pytest.raises(ValueError):
+        poseidon_cuda.duplex(state, data[::2], False, 0)       # strided data
+    with pytest.raises(ValueError):
+        poseidon_cuda.duplex(state, data, True, -1)
+    with pytest.raises(TypeError):
+        poseidon_cuda.sponge_rows(x.to(torch.int32))
+    with pytest.raises(ValueError):
+        poseidon_cuda.sponge_rows(x.cpu())
+    with pytest.raises(ValueError):
+        poseidon_cuda.sponge_rows(x.reshape(2, 4, 12))         # not a matrix
 
 
 def test_fibonacci_proof_same_on_card_and_cpu(card):
     cfg = prover.StarkConfig(rate_bits=2, num_queries=6, final_poly_len=4,
                              pow_bits=8)
-    trace, publics = FibonacciAir.make_trace(32)
-    pubs = [gl.to_fp(p) for p in publics]
+    trace, publics = FibonacciAir.make_trace(32, device="cpu")
+    pubs = [gl.to_fp(p, "cpu") for p in publics]
     on_cpu = prover.prove(FibonacciAir(), trace, pubs, cfg)
-    before = poseidon_cuda.launches
+    before = dict(poseidon_cuda.launches)
     on_card = prover.prove(FibonacciAir(), trace.to(card),
                            [p.to(card) for p in pubs], cfg)
-    assert poseidon_cuda.launches > before
+    assert all(poseidon_cuda.launches[k] > before[k] for k in before)
     assert serialize.payload(on_card) == serialize.payload(on_cpu)
     assert verifier.verify(FibonacciAir(), on_card, [p.to(card) for p in pubs],
                            5, cfg)

@@ -48,7 +48,7 @@ def _jax_ints(x):
 
 
 def test_negative_int64_representation():
-    x = gl.to_fp([P - 1, 1 << 63])
+    x = gl.to_fp([P - 1, 1 << 63], "cpu")
     assert x.dtype == torch.int64
     assert x.tolist() == [-(1 << 32), -(1 << 63)]
     assert _ints(x) == [P - 1, 1 << 63]
@@ -58,7 +58,7 @@ def test_negative_int64_representation():
     ("add", gl_add), ("sub", gl_sub), ("mul", gl_mul)])
 def test_binary_ops_match_reference(op, oracle):
     a, b = _pairs(1)
-    got = _ints(getattr(gl, op)(gl.to_fp(a), gl.to_fp(b)))
+    got = _ints(getattr(gl, op)(gl.to_fp(a, "cpu"), gl.to_fp(b, "cpu")))
     want = [oracle(x, y) for x, y in zip(a, b)]
     assert got == want
     jgot = _jax_ints(getattr(jgl, op)(jgl.to_fp(a), jgl.to_fp(b)))
@@ -67,7 +67,7 @@ def test_binary_ops_match_reference(op, oracle):
 
 def test_neg_square_double():
     a = _values(2)
-    x = gl.to_fp(a)
+    x = gl.to_fp(a, "cpu")
     assert _ints(gl.neg(x)) == [(-v) % P for v in a]
     assert _ints(gl.square(x)) == [v * v % P for v in a]
     assert _ints(gl.double(x)) == [2 * v % P for v in a]
@@ -76,7 +76,7 @@ def test_neg_square_double():
 @pytest.mark.parametrize("k", [0, 1, 7, 0xFFFFFFFF, 1 << 32, P - 1])
 def test_mul_scalar(k):
     a = _values(3)
-    got = _ints(gl.mul_scalar(gl.to_fp(a), k))
+    got = _ints(gl.mul_scalar(gl.to_fp(a, "cpu"), k))
     assert got == [v * k % P for v in a]
     assert got == _jax_ints(jgl.mul_scalar(jgl.to_fp(a), k))
 
@@ -84,15 +84,15 @@ def test_mul_scalar(k):
 def test_inv_and_batch_inv():
     a = _values(4, 64)
     want = [gl_inv(v) for v in a]
-    assert _ints(gl.inv(gl.to_fp(a))) == want
-    assert _ints(gl.batch_inv(gl.to_fp(a))) == want
+    assert _ints(gl.inv(gl.to_fp(a, "cpu"))) == want
+    assert _ints(gl.batch_inv(gl.to_fp(a, "cpu"))) == want
     assert _jax_ints(jgl.inv(jgl.to_fp(a))) == want
 
 
 @pytest.mark.parametrize("e", [0, 1, 7, 15, 16, 12345, P - 2])
 def test_pow_const(e):
     a = _values(5, 32)
-    got = _ints(gl.pow_const(gl.to_fp(a), e))
+    got = _ints(gl.pow_const(gl.to_fp(a, "cpu"), e))
     assert got == [pow(v, e, P) for v in a]
     assert got == _jax_ints(jgl.pow_const(jgl.to_fp(a), e))
 
@@ -107,7 +107,7 @@ def test_sum_mod_exact(shape, axis):
                     dtype=object)
     vals[: len(EDGE)] = EDGE
     vals = vals.reshape(shape)
-    got = gl.sum_mod(gl.to_fp(vals), axis=axis)
+    got = gl.sum_mod(gl.to_fp(vals, "cpu"), axis=axis)
     want = np.sum(vals, axis=axis) % P
     assert _ints(got) == [int(v) for v in np.asarray(want).reshape(-1)]
     jgot = jgl.sum_mod(jgl.to_fp(vals), axis=axis) if n <= (1 << 15) else None
@@ -116,7 +116,7 @@ def test_sum_mod_exact(shape, axis):
 
 
 def test_sum_mod_all_max():
-    x = gl.full((40000,), P - 1)
+    x = gl.full((40000,), P - 1, "cpu")
     assert _ints(gl.sum_mod(x, 0)) == [(P - 1) * 40000 % P]
 
 
@@ -134,7 +134,7 @@ def _fp2_vals(seed, n=64):
 def test_fp2_mul_matches_reference():
     x = _fp2_vals(7)
     y = list(reversed(_fp2_vals(8)))
-    got = ext.mul(ext.to_fp2(x), ext.to_fp2(y))
+    got = ext.mul(ext.to_fp2(x, "cpu"), ext.to_fp2(y, "cpu"))
     want = [fp2_mul(u, v) for u, v in zip(x, y)]
     assert list(zip(_ints(got[0]), _ints(got[1]))) == want
     j = jext.mul(jext.to_fp2(x), jext.to_fp2(y))
@@ -143,7 +143,7 @@ def test_fp2_mul_matches_reference():
 
 def test_fp2_inv_matches_reference():
     x = _fp2_vals(9, 48)
-    got = ext.inv(ext.to_fp2(x))
+    got = ext.inv(ext.to_fp2(x, "cpu"))
     want = [fp2_inv(u) for u in x]
     assert list(zip(_ints(got[0]), _ints(got[1]))) == want
     j = jext.inv(jext.to_fp2(x))
@@ -153,14 +153,14 @@ def test_fp2_inv_matches_reference():
 @pytest.mark.parametrize("e", [0, 3, 16, 1 << 11])
 def test_fp2_pow_const(e):
     x = _fp2_vals(10, 16)
-    got = ext.pow_const(ext.to_fp2(x), e)
+    got = ext.pow_const(ext.to_fp2(x, "cpu"), e)
     j = jext.pow_const(jext.to_fp2(x), e)
     assert _ints(got[0]) == _jax_ints(j[0]) and _ints(got[1]) == _jax_ints(j[1])
 
 
 def test_convert_pairs_round_trip():
     a = _values(11)
-    lo, hi = convert.fp_to_pairs(gl.to_fp(a))
+    lo, hi = convert.fp_to_pairs(gl.to_fp(a, "cpu"))
     jlo, jhi = jgl.to_fp(a)
     assert np.array_equal(lo, np.asarray(jlo)) and np.array_equal(hi, np.asarray(jhi))
-    assert _ints(convert.fp_from_pairs(jlo, jhi)) == a
+    assert _ints(convert.fp_from_pairs(jlo, jhi, "cpu")) == a

@@ -49,8 +49,8 @@ def _u64(j):
 @pytest.fixture(scope="module")
 def port_case():
     air = ah.HeaderAir(max_chunks=1)
-    trace, publics, digest = air.make_trace(HEADER)
-    pubs = [gl.to_fp(int(p)) for p in publics]
+    trace, publics, digest = air.make_trace(HEADER, "cpu")
+    pubs = [gl.to_fp(int(p), "cpu") for p in publics]
     proof = prover.prove(air, trace, pubs, prover.StarkConfig(**CFG))
     return air, trace, publics, pubs, digest, proof
 
@@ -82,24 +82,24 @@ def test_sha256_compress_trace_matches_reference():
     rng = np.random.default_rng(5)
     state = [int(x) for x in rng.integers(0, 1 << 32, 8, dtype=np.uint64)]
     msg = [int(x) for x in rng.integers(0, 1 << 32, 16, dtype=np.uint64)]
-    trace, publics, out = sha.Sha256CompressAir.make_trace(state, msg)
+    trace, publics, out = sha.Sha256CompressAir.make_trace(state, msg, "cpu")
     jtrace, jpublics, jout = jsha.Sha256CompressAir.make_trace(state, msg)
     assert out == jout and publics == jpublics
     assert np.array_equal(gl.to_u64(trace), _u64(jtrace))
-    pubs = [gl.to_fp(p) for p in publics]
+    pubs = [gl.to_fp(p, "cpu") for p in publics]
     assert check_constraints(sha.Sha256CompressAir(), trace, pubs)
-    bad = [gl.to_fp(p) for p in publics[:-1]] + [gl.to_fp(publics[-1] ^ 1)]
+    bad = [gl.to_fp(p, "cpu") for p in publics[:-1]] + [gl.to_fp(publics[-1] ^ 1, "cpu")]
     assert not check_constraints(sha.Sha256CompressAir(), trace, bad)
 
 
 def test_blake2b_single_chunk_trace_matches_reference():
     msg = bytes(range(77))
-    trace, publics, digest = b2.Blake2bAir.make_trace(msg)
+    trace, publics, digest = b2.Blake2bAir.make_trace(msg, "cpu")
     jtrace, jpublics, jdigest = jb2.Blake2bAir.make_trace(msg)
     assert digest == jdigest == hashlib.blake2b(msg, digest_size=32).digest()
     assert publics == jpublics
     assert np.array_equal(gl.to_u64(trace), _u64(jtrace))
-    assert check_constraints(b2.Blake2bAir(), trace, [gl.to_fp(p) for p in publics])
+    assert check_constraints(b2.Blake2bAir(), trace, [gl.to_fp(p, "cpu") for p in publics])
 
 
 def test_blake2b_var_air_constants_match_reference():
@@ -107,9 +107,9 @@ def test_blake2b_var_air_constants_match_reference():
     assert np.array_equal(air.constant_columns(air.n_rows),
                           jair.constant_columns(jair.n_rows))
     msg = bytes(range(200))
-    trace, publics, digest = air.make_trace(msg)
+    trace, publics, digest = air.make_trace(msg, "cpu")
     assert digest == hashlib.blake2b(msg, digest_size=32).digest()
-    assert check_constraints(air, trace, [gl.to_fp(p) for p in publics])
+    assert check_constraints(air, trace, [gl.to_fp(p, "cpu") for p in publics])
 
 
 def test_header_trace_and_constants_match_reference(port_case, jax_case):
@@ -120,8 +120,8 @@ def test_header_trace_and_constants_match_reference(port_case, jax_case):
     assert np.array_equal(gl.to_u64(trace), _u64(jtrace))
     assert np.array_equal(air.constant_columns(air.n_rows),
                           jair.constant_columns(jair.n_rows))
-    assert ah.derive_gammas(publics[:ah.P_G1]) == jah.derive_gammas(publics[:ah.P_G1])
-    fields = ah.header_publics_fields(publics)
+    assert ah.derive_gammas(publics[:ah.P_G1], "cpu") == jah.derive_gammas(publics[:ah.P_G1])
+    fields = ah.header_publics_fields(publics, device="cpu")
     assert fields == jah.header_publics_fields(jpublics)
     assert fields["data_root"] == HEADER[-32:]
 
@@ -151,5 +151,5 @@ def test_port_verifier_rejects_changed_data_root(port_case):
     air, _, publics, pubs, _, proof = port_case
     log_n = air.n_rows.bit_length() - 1
     bad = list(pubs)
-    bad[ah.P_DR + 5] = gl.to_fp((publics[ah.P_DR + 5] + 1) % 256)
+    bad[ah.P_DR + 5] = gl.to_fp((publics[ah.P_DR + 5] + 1) % 256, "cpu")
     assert not verifier.verify(air, proof, bad, log_n, prover.StarkConfig(**CFG))

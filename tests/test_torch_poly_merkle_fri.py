@@ -76,14 +76,14 @@ def test_coset_lde_and_coset_intt_match_reference(rate_bits):
 
 
 def test_domain_points_and_vanishing_match_reference():
-    assert _same(dom.domain_points(5, 7), jdom.domain_points(5, 7))
-    assert _same(dom.vanishing_on_coset(4, 2), jdom.vanishing_on_coset(4, 2))
+    assert _same(dom.domain_points(5, 7, "cpu"), jdom.domain_points(5, 7))
+    assert _same(dom.vanishing_on_coset(4, 2, device="cpu"), jdom.vanishing_on_coset(4, 2))
 
 
 def test_barycentric_eval_matches_reference():
     evals = _rand(30, (5, 32))
     zeta = tuple(int(v) for v in _rand(31, 2))
-    z_port = (gl.to_fp(zeta[0]), gl.to_fp(zeta[1]))
+    z_port = (gl.to_fp(zeta[0], "cpu"), gl.to_fp(zeta[1], "cpu"))
     z_jax = (jgl.to_fp(zeta[0]), jgl.to_fp(zeta[1]))
     for shift in (1, 7):
         got = dom.barycentric_eval(_port(evals), z_port, 5, shift)
@@ -96,7 +96,7 @@ def test_barycentric_eval_matches_reference():
 def test_challenger_sequence_matches_reference():
     """Observations of 3, 13 and 5 elements leave pending remainders; the
     squeezes, extension squeezes and index draws must agree."""
-    port, ref = Challenger.new(), JChallenger.new()
+    port, ref = Challenger.new("cpu"), JChallenger.new()
     outs = []
     for step, k in enumerate((3, 13, 5)):
         v = _rand(40 + step, k)
@@ -143,7 +143,7 @@ def test_fri_fold_matches_reference():
     cw = (_rand(70, 32), _rand(71, 32))
     beta = tuple(int(v) for v in _rand(72, 2))
     got = fri.fold((_port(cw[0]), _port(cw[1])),
-                   (gl.to_fp(beta[0]), gl.to_fp(beta[1])), 6, 1)
+                   (gl.to_fp(beta[0], "cpu"), gl.to_fp(beta[1], "cpu")), 6, 1)
     want = jfri.fold((_jax(cw[0]), _jax(cw[1])),
                      (jgl.to_fp(beta[0]), jgl.to_fp(beta[1])), 6, 1)
     assert _same_ext(got, want)
@@ -153,7 +153,7 @@ def test_fri_fold_matches_reference():
 
 def test_grind_returns_the_lowest_nonce_like_reference():
     v = _rand(80, 11)
-    port, ref = Challenger.new(), JChallenger.new()
+    port, ref = Challenger.new("cpu"), JChallenger.new()
     port.observe(_port(v))
     ref.observe(_jax(v))
     nonce = fri._grind_nonce(port, 8)
@@ -177,9 +177,9 @@ def test_fri_prove_verify_round_trip_and_reject(pow_bits):
     coeffs = _rand(90, (2, 8))
     cw = (ntt.coeffs_to_coset_evals(_port(coeffs[0]), 2),
           ntt.coeffs_to_coset_evals(_port(coeffs[1]), 2))
-    proof, idx = fri.prove(cw, Challenger.new(), cfg)
-    ok, vidx, _ = fri.verify(proof, 5, Challenger.new(), cfg)
+    proof, idx = fri.prove(cw, Challenger.new("cpu"), cfg)
+    ok, vidx, _ = fri.verify(proof, 5, Challenger.new("cpu"), cfg)
     assert bool(ok) and torch.equal(vidx, idx)
     proof.query_leaves[1] = proof.query_leaves[1].clone()
     proof.query_leaves[1][0, 0] ^= 1
-    assert not bool(fri.verify(proof, 5, Challenger.new(), cfg)[0])
+    assert not bool(fri.verify(proof, 5, Challenger.new("cpu"), cfg)[0])

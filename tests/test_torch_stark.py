@@ -44,8 +44,8 @@ def jax_side():
 
 @pytest.fixture(scope="module")
 def port_side():
-    trace, publics = FibonacciAir.make_trace(1 << LOG_N)
-    pubs = [gl.to_fp(p) for p in publics]
+    trace, publics = FibonacciAir.make_trace(1 << LOG_N, device="cpu")
+    pubs = [gl.to_fp(p, "cpu") for p in publics]
     proofs = {name: prover.prove(FibonacciAir(), trace, pubs,
                                  prover.StarkConfig(**kw))
               for name, kw in CONFIGS.items()}
@@ -67,7 +67,8 @@ def test_port_verifier_accepts_port_and_reference_proofs(name, jax_side, port_si
     proof, pubs = port_side[0][name], port_side[1]
     assert verifier.verify(FibonacciAir(), proof, pubs, LOG_N, cfg)
     leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jax_side[0][name])]
-    from_jax = convert.proof_from_pairs(list(zip(leaves[0::2], leaves[1::2])), proof)
+    from_jax = convert.proof_from_pairs(list(zip(leaves[0::2], leaves[1::2])), proof,
+                                      "cpu")
     assert verifier.verify(FibonacciAir(), from_jax, pubs, LOG_N, cfg)
 
 
@@ -100,7 +101,7 @@ def test_port_verifier_rejects_tampered_proof(field, port_side):
 def test_port_verifier_rejects_wrong_public_and_nonce(port_side):
     cfg = prover.StarkConfig(**CONFIGS["pow8"])
     proof, pubs = port_side[0]["pow8"], port_side[1]
-    wrong = list(pubs[:2]) + [gl.add(pubs[2], gl.ones(()))]
+    wrong = list(pubs[:2]) + [gl.add(pubs[2], gl.ones((), "cpu"))]
     assert not verifier.verify(FibonacciAir(), proof, wrong, LOG_N, cfg)
     import copy
     bad = copy.copy(proof)
@@ -114,19 +115,19 @@ def test_serialize_round_trip(port_side):
     proof = port_side[0]["entry"]
     data = serialize.serialize_proof(proof)
     like = serialize.empty_proof_like_shapes(FibonacciAir(), cfg, LOG_N)
-    back = serialize.deserialize_proof(data, like)
+    back = serialize.deserialize_proof(data, like, "cpu")
     assert serialize.payload(back) == serialize.payload(proof)
     assert verifier.verify(FibonacciAir(), back, port_side[1], LOG_N, cfg)
     with pytest.raises(ValueError):
-        serialize.deserialize_proof(data[:-4], like)
+        serialize.deserialize_proof(data[:-4], like, "cpu")
 
 
 def test_check_constraints_on_trace():
-    trace, publics = FibonacciAir.make_trace(16)
-    pubs = [gl.to_fp(p) for p in publics]
+    trace, publics = FibonacciAir.make_trace(16, device="cpu")
+    pubs = [gl.to_fp(p, "cpu") for p in publics]
     assert check_constraints(FibonacciAir(), trace, pubs)
     bad = trace.clone()
-    bad[1, 5] = gl.add(bad[1, 5], gl.ones(()))
+    bad[1, 5] = gl.add(bad[1, 5], gl.ones((), "cpu"))
     assert not check_constraints(FibonacciAir(), bad, pubs)
 
 
@@ -135,8 +136,8 @@ def test_prove_refuses_lookup_airs():
         def lookup_range_columns(self):
             return [0]
 
-    trace, publics = FibonacciAir.make_trace(16)
+    trace, publics = FibonacciAir.make_trace(16, device="cpu")
     with pytest.raises(NotImplementedError):
-        prover.prove(LookupAir(), trace, [gl.to_fp(p) for p in publics],
+        prover.prove(LookupAir(), trace, [gl.to_fp(p, "cpu") for p in publics],
                      prover.StarkConfig(rate_bits=1, num_queries=2,
                                         final_poly_len=2))

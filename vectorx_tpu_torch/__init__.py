@@ -10,6 +10,26 @@ Mirrors the JAX package's layout (which stays the reference):
 - ``stark``    — AIRs, Merkle commitments, FRI, prover/verifier
 - ``circuits`` — the SCALE host codec
 - ``convert``  — carries arrays and proofs to and from the JAX package
+
+Entry points that create tensors take ``device=None`` and resolve it with
+``default_device``: the current CUDA device, unless the caller names
+another (``device="cpu"`` for the plain versions). Functions that take
+tensors follow their inputs' device.
 """
 
-__version__ = "0.1.0"
+import torch
+
+__version__ = "0.2.0"
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point works on: ``device`` if the caller names
+    one, else the current CUDA device. Without a CUDA device ``None`` raises:
+    the port never moves to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "vectorx_tpu_torch runs on a CUDA device and found none; pass "
+            "device=\"cpu\" to run the plain versions on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())

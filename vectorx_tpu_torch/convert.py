@@ -17,14 +17,18 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from . import default_device
+
 Planes = Tuple[np.ndarray, np.ndarray]
 
 
 def fp_from_pairs(lo, hi, device=None) -> torch.Tensor:
-    """uint32 (lo, hi) planes -> int64 tensor."""
+    """uint32 (lo, hi) planes -> int64 tensor (on the current CUDA device
+    unless ``device`` names another)."""
     v = (np.asarray(lo, dtype=np.uint64)
          | (np.asarray(hi, dtype=np.uint64) << np.uint64(32)))
-    return torch.from_numpy(np.ascontiguousarray(v).view(np.int64)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(v).view(np.int64)).to(
+        default_device(device))
 
 
 def fp_to_pairs(x: torch.Tensor) -> Planes:

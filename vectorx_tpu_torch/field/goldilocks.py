@@ -17,13 +17,17 @@ The reduction is the standard Goldilocks one:
     2^96 ≡ -1       (mod p)
 
 Every public function takes and returns canonical elements; the device is
-the one of the input tensors.
+the one of the input tensors. The constructors (``to_fp``, ``zeros``,
+``ones``, ``full``) take ``device=None`` for the current CUDA device (see
+``default_device``) or ``"cpu"``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import default_device
 
 MODULUS = 0xFFFFFFFF00000001  # p = 2^64 - 2^32 + 1
 EPSILON = 0xFFFFFFFF  # 2^64 mod p
@@ -65,7 +69,8 @@ def to_fp(values, device=None) -> Fp:
         # ints >= 2^63 would round through float64)
         u = np.array(np.asarray(values, dtype=np.object_) % MODULUS,
                      dtype=np.uint64)
-    return torch.from_numpy(np.ascontiguousarray(u).view(np.int64)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(u).view(np.int64)).to(
+        default_device(device))
 
 
 def to_u64(x: Fp) -> np.ndarray:
@@ -79,16 +84,18 @@ def from_fp(x: Fp) -> np.ndarray:
 
 
 def zeros(shape, device=None) -> Fp:
-    return torch.zeros(shape, dtype=torch.int64, device=device)
+    return torch.zeros(shape, dtype=torch.int64,
+                       device=default_device(device))
 
 
 def ones(shape, device=None) -> Fp:
-    return torch.ones(shape, dtype=torch.int64, device=device)
+    return torch.ones(shape, dtype=torch.int64,
+                      device=default_device(device))
 
 
 def full(shape, value: int, device=None) -> Fp:
     return torch.full(shape, to_i64(value % MODULUS), dtype=torch.int64,
-                      device=device)
+                      device=default_device(device))
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,10 @@ digests match it bit for bit:
   rejection-sampled below p.
 
 States are int64 tensors of shape (..., 12) (see field/goldilocks.py).
-``permute`` launches the CUDA kernel (ops/poseidon_cuda.py) for every CUDA
-tensor and runs ``permute_plain``, the dense 30-round torch version, for
-CPU tensors.
+``permute``, ``duplex`` (a transcript's chain of absorbs and squeezes) and
+``hash_many`` (leaf digests) launch the CUDA kernels (ops/poseidon_cuda.py)
+for every CUDA tensor and run their plain versions (``permute_plain``, the
+dense 30-round torch version, and the loops over it) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -283,9 +284,9 @@ def hash_two_to_one(left: gl.Fp, right: gl.Fp) -> gl.Fp:
     return permute(torch.cat([left, right, cap], dim=-1))[..., :DIGEST_WIDTH]
 
 
-def hash_many(inputs: gl.Fp) -> gl.Fp:
+def hash_many_plain(inputs: gl.Fp) -> gl.Fp:
     """Sponge (overwrite mode) over the last axis: (..., n) -> (..., 4),
-    zero-padded to a multiple of RATE."""
+    zero-padded to a multiple of RATE; one ``permute_plain`` per chunk."""
     n = inputs.shape[-1]
     n_pad = (-n) % RATE
     if n_pad:
@@ -293,6 +294,56 @@ def hash_many(inputs: gl.Fp) -> gl.Fp:
     state = torch.zeros(inputs.shape[:-1] + (WIDTH,), dtype=torch.int64,
                         device=inputs.device)
     for i in range(0, inputs.shape[-1], RATE):
-        state = permute(torch.cat([inputs[..., i:i + RATE],
-                                   state[..., RATE:]], dim=-1))
+        state = permute_plain(torch.cat([inputs[..., i:i + RATE],
+                                         state[..., RATE:]], dim=-1))
     return state[..., :DIGEST_WIDTH]
+
+
+def hash_many(inputs: gl.Fp) -> gl.Fp:
+    """Sponge over the last axis, (..., n) -> (..., 4): the fused
+    ``sponge_rows`` kernel for CUDA tensors (a 2-D view is read through its
+    strides, so the rows of a column-major matrix need no transpose),
+    ``hash_many_plain`` for CPU tensors."""
+    if inputs.is_cuda:
+        from ..ops import poseidon_cuda
+        rows = inputs if inputs.dim() == 2 else inputs.reshape(
+            -1, inputs.shape[-1])
+        return poseidon_cuda.sponge_rows(rows).reshape(
+            inputs.shape[:-1] + (DIGEST_WIDTH,))
+    if inputs.device.type != "cpu":
+        raise NotImplementedError(f"no Poseidon path for {inputs.device}")
+    return hash_many_plain(inputs)
+
+
+def duplex_plain(state: gl.Fp, data: gl.Fp, flush: bool = False,
+                 n_squeeze: int = 0) -> Tuple[gl.Fp, gl.Fp]:
+    """A transcript's chain on (..., 12) states in torch ops: absorb the
+    full RATE-sized chunks of ``data`` (..., m) in overwrite mode, one
+    permutation each; with ``flush`` also its tail of fewer than RATE
+    elements (only those lanes are overwritten); then squeeze ``n_squeeze``
+    elements, up to RATE per permutation, each read followed by a
+    permutation. Returns (state, squeezed (..., n_squeeze))."""
+    m = data.shape[-1]
+    end = m if flush else m - m % RATE
+    for i in range(0, end, RATE):
+        chunk = data[..., i:min(i + RATE, end)]
+        state = permute_plain(
+            torch.cat([chunk, state[..., chunk.shape[-1]:]], dim=-1))
+    outs = [data[..., :0]]
+    for i in range(0, n_squeeze, RATE):
+        outs.append(state[..., :min(RATE, n_squeeze - i)])
+        state = permute_plain(state)
+    return state, torch.cat(outs, dim=-1)
+
+
+def duplex(state: gl.Fp, data: gl.Fp, flush: bool = False,
+           n_squeeze: int = 0) -> Tuple[gl.Fp, gl.Fp]:
+    """``duplex_plain``'s function: one launch of the cooperative CUDA
+    kernel for CUDA tensors, the plain loop for CPU tensors."""
+    if state.is_cuda:
+        from ..ops import poseidon_cuda
+        return poseidon_cuda.duplex(state.contiguous(), data.contiguous(),
+                                    flush, n_squeeze)
+    if state.device.type != "cpu":
+        raise NotImplementedError(f"no Poseidon path for {state.device}")
+    return duplex_plain(state, data, flush, n_squeeze)

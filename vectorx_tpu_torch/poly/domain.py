@@ -8,6 +8,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import default_device
 from ..field import goldilocks as gl
 from ..field import ext
 
@@ -28,7 +29,8 @@ def _domain_points_np(log_n: int, shift: int) -> np.ndarray:
 def domain_points(log_n: int, shift: int = 1, device=None) -> gl.Fp:
     """(shift * w^j) for j in [0, 2^log_n), w the 2^log_n root of unity."""
     return torch.from_numpy(
-        _domain_points_np(log_n, shift % P).view(np.int64)).to(device)
+        _domain_points_np(log_n, shift % P).view(np.int64)).to(
+            default_device(device))
 
 
 def barycentric_eval(evals: gl.Fp, zeta: ext.Fp2, log_n: int,

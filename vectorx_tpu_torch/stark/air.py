@@ -21,6 +21,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import default_device
 from ..field import goldilocks as gl
 from ..field import ext
 
@@ -30,7 +31,7 @@ class BaseVecAlgebra:
 
     def __init__(self, shape, device=None):
         self.shape = tuple(shape)
-        self.device = device
+        self.device = default_device(device)
 
     def add(self, a, b):
         return gl.add(a, b)
@@ -59,7 +60,7 @@ class ExtAlgebra:
     """Elements: Fp2 scalars (shape-() components)."""
 
     def __init__(self, device=None):
-        self.device = device
+        self.device = default_device(device)
 
     def add(self, a, b):
         return ext.add(a, b)
@@ -167,12 +168,14 @@ class Air:
         return []
 
     def num_constraints(self) -> int:
-        """Total constraint count (transition + first + last)."""
-        alg = ExtAlgebra()
+        """Total constraint count (transition + first + last): a shape
+        probe on the host, whatever device the proofs run on."""
+        alg = ExtAlgebra("cpu")
         dummy = [alg.zero() for _ in range(self.num_cols)]
         k = self.constant_columns(2).shape[0]
         dc = [alg.zero() for _ in range(k)]
-        pubs = [gl.zeros(()) for _ in range(getattr(self, "num_publics", 0))]
+        pubs = [gl.zeros((), "cpu")
+                for _ in range(getattr(self, "num_publics", 0))]
         return (len(self.transition(alg, dummy, dummy, pubs, dc, dc))
                 + len(self.first_row(alg, dummy, pubs, dc))
                 + len(self.last_row(alg, dummy, pubs, dc)))

@@ -39,6 +39,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .. import default_device
 from ..field import goldilocks as gl
 from .air import Air
 from .air_sha256 import Sha256CompressAir as _GroupedAirBase
@@ -348,8 +349,9 @@ class Blake2bAir(_GroupedAirBase):
     # ------------------------------------------------------------------
 
     @staticmethod
-    def make_trace(msg: bytes):
-        """msg: <= 128 bytes. -> (trace, publics[41], digest_bytes)."""
+    def make_trace(msg: bytes, device=None):
+        """msg: <= 128 bytes. -> (trace on ``device``, publics[41],
+        digest_bytes)."""
         assert len(msg) <= 128
         length = len(msg)
         buf = msg + b"\x00" * (128 - length)
@@ -435,7 +437,7 @@ class Blake2bAir(_GroupedAirBase):
         publics.append(length)
         for j in range(4):
             publics += [out[j] & M32, out[j] >> 32]
-        trace = gl.to_fp(cols)
+        trace = gl.to_fp(cols, device)
         return trace, publics, digest
 
 
@@ -802,8 +804,9 @@ class Blake2bVarAir(Blake2bAir):
     # Witness generation
     # ------------------------------------------------------------------
 
-    def make_trace(self, msg: bytes):
-        """msg: 1..128*max_chunks bytes. -> (trace, publics[9], digest).
+    def make_trace(self, msg: bytes, device=None):
+        """msg: 1..128*max_chunks bytes. -> (trace on ``device``,
+        publics[9], digest).
 
         The sequential Blake2b recurrence runs on Python ints (one G per
         row); column expansion (bit families, word halves) is vectorized
@@ -935,5 +938,6 @@ class Blake2bVarAir(Blake2bAir):
         publics = [length]
         for j in range(4):
             publics += [h[j] & M32, h[j] >> 32]
-        trace = torch.from_numpy(cols.view(np.int64))
+        trace = torch.from_numpy(cols.view(np.int64)).to(
+            default_device(device))
         return trace, publics, digest

@@ -39,6 +39,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .. import default_device
 from ..field import goldilocks as gl
 from .air_blake2b import (Blake2bVarAir, MW, N_ROWS, V_NUM_COLS,
                           V_NUM_CONSTS)
@@ -92,11 +93,11 @@ def compact_len(first_byte: int) -> int:
     return _COMPACT_LEN[first_byte & 3]
 
 
-def derive_gammas(publics_87: List[int]) -> Tuple[int, int]:
+def derive_gammas(publics_87: List[int], device=None) -> Tuple[int, int]:
     """Fiat-Shamir challenges binding the extraction claims: Poseidon
-    transcript over every non-γ public."""
-    ch = Challenger.new()
-    ch.observe(gl.to_fp([int(p) for p in publics_87]))
+    transcript over every non-γ public, run on ``device``."""
+    ch = Challenger.new(device)
+    ch.observe(gl.to_fp([int(p) for p in publics_87], device))
     g = gl.from_fp(ch.squeeze(2))
     return int(g[0]), int(g[1])
 
@@ -228,8 +229,9 @@ class HeaderAir(Blake2bVarAir):
 
     # -- witness ---------------------------------------------------------
 
-    def make_trace(self, msg: bytes):
-        """msg: SCALE-encoded header bytes. -> (trace, publics[89], digest).
+    def make_trace(self, msg: bytes, device=None):
+        """msg: SCALE-encoded header bytes. -> (trace on ``device``,
+        publics[89], digest).
 
         publics come back as Python ints; wrap with gl.to_fp for prove()."""
         length = len(msg)
@@ -237,7 +239,8 @@ class HeaderAir(Blake2bVarAir):
         clen = compact_len(msg[32])
         assert length >= 64 + clen + 1, "header too short for state root"
 
-        trace_v, pub_v, digest = super().make_trace(msg)
+        device = default_device(device)
+        trace_v, pub_v, digest = super().make_trace(msg, device)
 
         publics = list(pub_v)                                     # 9
         for w in range(4):                                        # parent
@@ -249,7 +252,7 @@ class HeaderAir(Blake2bVarAir):
         dr = msg[length - 32:length]
         publics += list(sr)
         publics += list(dr)
-        g1, g2 = derive_gammas(publics)
+        g1, g2 = derive_gammas(publics, device)
         publics += [g1, g2]
 
         n = self.n_rows
@@ -288,17 +291,20 @@ class HeaderAir(Blake2bVarAir):
             vals[start + 32:] = acc
             extra[row] = vals
 
-        trace = torch.cat([trace_v, torch.from_numpy(extra.view(np.int64))])
+        trace = torch.cat([trace_v,
+                           torch.from_numpy(extra.view(np.int64)).to(device)])
         return trace, publics, digest
 
 
-def header_publics_fields(publics: List[int], check_gamma: bool = True) -> dict:
+def header_publics_fields(publics: List[int], check_gamma: bool = True,
+                          device=None) -> dict:
     """Verifier-side interpretation + consistency checks of a HeaderAir
     public vector. Raises AssertionError on malformed claims. Returns
     parent_hash/digest bytes, block_number, state_root, data_root.
 
     ``check_gamma=False`` skips the γ-derivation check for subclasses that
-    bind additional claim data into the challenges (air_rotate)."""
+    bind additional claim data into the challenges (air_rotate). The γ
+    transcript runs on ``device``."""
     length = int(publics[P_LEN])
     clen = int(publics[P_CLEN])
     bn_bytes = bytes(int(publics[P_BN + k]) for k in range(5))
@@ -313,7 +319,7 @@ def header_publics_fields(publics: List[int], check_gamma: bool = True) -> dict:
         "window bytes beyond compact-int must match state root"
     assert length >= 64 + clen + 1
     if check_gamma:
-        g1, g2 = derive_gammas([int(p) for p in publics[:P_G1]])
+        g1, g2 = derive_gammas([int(p) for p in publics[:P_G1]], device)
         assert int(publics[P_G1]) == g1 and int(publics[P_G2]) == g2, \
             "γ challenges not derived from the claim"
     parent = b"".join(

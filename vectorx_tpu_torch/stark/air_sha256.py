@@ -261,12 +261,13 @@ class Sha256CompressAir(Air):
     # ------------------------------------------------------------------
 
     @staticmethod
-    def make_trace(state_in: List[int], msg_words: List[int]):
-        """-> ((NUM_COLS, 128) trace, publics[32], state_out[8])."""
+    def make_trace(state_in: List[int], msg_words: List[int], device=None):
+        """-> ((NUM_COLS, 128) trace on ``device``, publics[32],
+        state_out[8])."""
         assert len(state_in) == 8 and len(msg_words) == 16
         cols = np.zeros((NUM_COLS, N_ROWS), dtype=np.uint64)
         out, _ = fill_block(cols, 0, state_in, msg_words)
-        trace = gl.to_fp(cols)
+        trace = gl.to_fp(cols, device)
         publics = list(state_in) + list(msg_words) + out
         return trace, publics, out
 

@@ -3,7 +3,9 @@
 Prover and verifier drive an identical sequence of observe/squeeze calls.
 State: one width-12 Poseidon state on the device of the observed values.
 Absorption is overwrite-mode in RATE (= 8) chunks; each squeeze reads up to
-8 lanes, then permutes.
+8 lanes, then permutes. Every observe and every squeeze is one call of
+``hashes.poseidon.duplex``: one kernel launch on the card, the plain loop
+of permutations on the CPU.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import default_device
 from ..field import goldilocks as gl
 from ..field import ext
 from ..hashes import poseidon as ps
@@ -24,6 +27,7 @@ class Challenger:
 
     @staticmethod
     def new(device=None) -> "Challenger":
+        device = default_device(device)
         return Challenger(state=gl.zeros((ps.WIDTH,), device),
                           pending=gl.zeros((0,), device))
 
@@ -31,40 +35,30 @@ class Challenger:
 
     def observe(self, elems: gl.Fp) -> None:
         """Observe a flat (k,) vector of field elements. Full RATE-sized
-        chunks absorb now; the remainder stays pending."""
+        chunks absorb now (one chain); the remainder stays pending."""
         buf = torch.cat([self.pending, elems.reshape(-1)])
-        nfull = buf.shape[0] // ps.RATE
-        for c in range(nfull):
-            self.state = ps.permute(torch.cat(
-                [buf[c * ps.RATE:(c + 1) * ps.RATE], self.state[ps.RATE:]]))
-        self.pending = buf[nfull * ps.RATE:]
+        nfull = buf.shape[0] // ps.RATE * ps.RATE
+        if nfull:
+            self.state, _ = ps.duplex(self.state, buf[:nfull])
+        self.pending = buf[nfull:]
 
     def observe_digests(self, digests: gl.Fp) -> None:
         """Observe (n, 4) digests (e.g. a Merkle cap)."""
         self.observe(digests.reshape(-1))
 
-    def _absorb(self) -> None:
-        n = self.pending.shape[0]
-        self.state = ps.permute(torch.cat([self.pending, self.state[n:]]))
-        self.pending = self.pending[:0]
-
     # -- squeeze ----------------------------------------------------------
 
-    def _flush(self) -> None:
-        if self.pending.shape[0]:
-            self._absorb()
-
     def squeeze(self, n: int) -> gl.Fp:
-        """Draw n field-element challenges as a (n,) vector."""
-        self._flush()
-        outs = []
-        remaining = n
-        while remaining > 0:
-            take = min(remaining, ps.RATE)
-            outs.append(self.state[:take])
-            self.state = ps.permute(self.state)
-            remaining -= take
-        return torch.cat(outs)
+        """Draw n field-element challenges as a (n,) vector: absorb what
+        is pending (overwriting only those lanes), then read up to RATE
+        lanes per permutation."""
+        self.state, out = ps.duplex(self.state, self.pending, flush=True,
+                                    n_squeeze=n)
+        self.pending = self.pending[:0]
+        return out
+
+    def _flush(self) -> None:
+        self.squeeze(0)
 
     def squeeze_ext(self, n: int) -> ext.Fp2:
         base = self.squeeze(2 * n)

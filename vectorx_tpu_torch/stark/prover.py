@@ -29,6 +29,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import default_device
 from ..field import goldilocks as gl
 from ..field import ext
 from ..poly import domain as pdom
@@ -161,9 +162,9 @@ def constant_vk(air: Air, log_n: int, config: StarkConfig, device=None):
     Returns (tree, cfp, c_lde): the Poseidon Merkle tree over the constant
     columns' coset LDE, their subgroup evals and the LDE. Cached on the air
     object, keyed by device as well as shape."""
+    device = default_device(device)
     cache = air.__dict__.setdefault("_vx_vk", {})
-    key = (log_n, config.rate_bits, config.cap_height, str(torch.device(
-        device) if device is not None else torch.device("cpu")))
+    key = (log_n, config.rate_bits, config.cap_height, str(device))
     if key not in cache:
         cvals = np.asarray(air.constant_columns(1 << log_n), dtype=np.object_)
         if cvals.shape[0] == 0:

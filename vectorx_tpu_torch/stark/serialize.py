@@ -70,7 +70,8 @@ def deserialize_proof(data: bytes, like, device=None):
 
 def empty_proof_like_shapes(air, config, log_n: int):
     """A zero StarkProof with the structure/shapes that ``prover.prove``
-    emits for a 2^log_n-row trace — the deserialization template."""
+    emits for a 2^log_n-row trace — the deserialization template (host
+    tensors: only their structure and shapes are read)."""
     q = config.num_queries
     C = air.num_cols
     chunks = prover.num_quotient_chunks(air)

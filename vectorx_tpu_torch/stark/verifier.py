@@ -171,10 +171,12 @@ def verify(air: Air, proof: StarkProof, publics: List[gl.Fp], log_n: int,
         # membership against the verifier's OWN (recomputed) VK cap
         checks.append((vk[0].cap, proof.const_rows_a, proof.const_paths_a,
                        proof.const_rows_b, proof.const_paths_b))
+    idx_ab = torch.cat([idx_a, idx_b])
     for cap, rows_a, paths_a, rows_b, paths_b in checks:
-        if not (bool(torch.all(merkle.verify_batch(cap, idx_a, rows_a, paths_a)))
-                and bool(torch.all(merkle.verify_batch(cap, idx_b, rows_b,
-                                                       paths_b)))):
+        # both halves of every FRI leaf pair in one batch per commitment
+        if not bool(torch.all(merkle.verify_batch(
+                cap, idx_ab, torch.cat([rows_a, rows_b]),
+                torch.cat([paths_a, paths_b])))):
             return False
 
     # -- 3: DEEP composition recomputation at query points ------------------
