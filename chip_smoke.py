@@ -9,30 +9,46 @@ Phases, a few lines each; any failure raises (non-zero exit, no final line):
                 bit for bit (max |diff| = 0 is the tolerance):
                 permute at the main path's batch shapes (boundary rows
                 included), on both of its routes, and against permute_ints;
-                duplex for chains of 1..497 chunks with tails, and squeezes;
+                duplex for chains of 1..497 chunks with tails, and squeezes
+                of 1..84; after the main paths also every (length, flush,
+                squeeze) the transcripts of those runs gave it;
                 sponge_rows for widths 4..987 at 16384 and 28 rows, column-
-                and row-major. Then times by CUDA events, each beside its
-                bound, and the measured crossover of permute's two routes
+                and row-major, and at the statements' shapes (up to
+                (314, 524288) column-major) on a seeded sample of rows.
+                Then times by CUDA events, each beside its bound, and the
+                measured crossover of permute's two routes
   4. small    — HeaderAir(max_chunks=2) proved on the card and on the CPU
                 (plain path): identical proof payloads
-  5. slice    — the Avail-header proof at full width: HeaderAir(16), a
+  5. aux-small — a two-column LogUp range AIR and a RAM-multiset AIR proved
+                on the card and on the CPU: identical payloads, the honest
+                proof accepted, an out-of-range value rejected
+  6. slice    — the Avail-header proof at full width: HeaderAir(16), a
                 1990-byte header, rate 8, 28 queries, pow 16; one cold and
                 three warm proves with a per-phase split, verify on the
                 card, a tampered proof rejected; kernel launches per entry
                 for one warm prove and one verify
+  7. statement — the hash statements of the header_range bundle at full
+                width (rate 4, 42 queries, pow 16): MerkleSha256Air over 256
+                leaves (65536 x 368), ChainedSha256Air(300) (131072 x 314)
+                and Sha512ChallengeAir of 32 lanes (8192 x 685 + 82 aux
+                columns). For each: witness seconds, public output against
+                hashlib, one cold and one warm prove with the per-phase
+                split, peak device memory, verify, a tampered proof
+                rejected, kernel launches (counted for each proof alone)
 Then one JSON line of the kernels, the card's name and power limit, and
 the result line {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --profile
+    python3 chip_smoke.py --profile [header|merkle|chain|sha512]
 
 runs phases 1 and 2 and then, in place of the others, one warm prove and one
-verify of the slice under torch.profiler (CUDA activity only): the span, the
-device-busy time, the kernel count and the Poseidon kernels' time and count
-of each. It prints no result line.
+verify of the named proof (header when none is named) under torch.profiler
+(CUDA activity only): the span, the device-busy time, the kernel count and
+the Poseidon kernels' time and count of each. It prints no result line.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
 import subprocess
@@ -42,27 +58,45 @@ import time
 import numpy as np
 import torch
 
-from vectorx_tpu_torch.circuits import scale
+from vectorx_tpu_torch import default_device
+from vectorx_tpu_torch.circuits import commitments, consts, scale
+from vectorx_tpu_torch.circuits.ed25519 import L_ORDER
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.hashes import poseidon as ps
 from vectorx_tpu_torch.ops import poseidon_cuda as pc
 from vectorx_tpu_torch.stark import air_header as ah
 from vectorx_tpu_torch.stark import fri, prover, serialize, verifier
+from vectorx_tpu_torch.stark.air import Air
+from vectorx_tpu_torch.stark.air_ed25519 import dummy_sig
+from vectorx_tpu_torch.stark.air_sha256_chain import ChainedSha256Air
+from vectorx_tpu_torch.stark.air_sha256_merkle import MerkleSha256Air
+from vectorx_tpu_torch.stark.air_sha512 import Sha512ChallengeAir
 
 HEADER_CHUNKS = 16
 HEADER_BYTES = 1990
 POSEIDON_BATCH = 131072          # bench.py's Poseidon batch
-# the batch shapes the slice gives `permute`: the pow-16 grind batch, the
+# the batch shapes the main paths give `permute`: the pow-16 grind batch
+# (also the first tree level under the statements' 524288 leaves), the
 # bench batch, a tree level under 16384 leaves and smaller ones, the
-# verifier's 56- and 28-query paths, one state
+# verifiers' 84-, 56-, 42- and 28-query paths, one state
 PATH_SHAPES = ((fri._grind_batch(prover.PRODUCTION_POW_BITS), 12),
-               (POSEIDON_BATCH, 12), (16384, 12), (8192, 12), (56, 12),
-               (33, 12), (28, 12), (3, 12), (2, 12), (1, 12), (12,))
+               (POSEIDON_BATCH, 12), (16384, 12), (8192, 12), (84, 12),
+               (56, 12), (42, 12), (33, 12), (28, 12), (3, 12), (2, 12),
+               (1, 12), (12,))
 CHAIN_CHUNKS = (1, 2, 7, 100, 497)   # 497: the ζ openings of HeaderAir(16)
 CHAIN_TAILS = (0, 1, 7)
-SQUEEZES = (1, 2, 8, 9, 28)
+SQUEEZES = (1, 2, 8, 9, 28, 42, 84)   # 28 and 42: the query indices
 SPONGE_WIDTHS = (4, 8, 9, 135, 799, 987)   # FRI leaf ... trace ... trace+VK
 SPONGE_ROWS = (16384, 28)                  # the LDE domain, the query rows
+# (width, rows) of the column-major matrices the statement proofs commit:
+# trace, aux, constants, quotient chunks; the kernel's digests are compared
+# on SAMPLE_ROWS seeded rows (first and last included), since the plain
+# sponge takes ~0.3 us a cell on the card. The same widths at the 84 query
+# rows of a 42-query verify are compared in full.
+SPONGE_LARGE = ((314, 524288), (10, 524288), (4, 524288), (368, 262144),
+                (48, 262144), (685, 32768), (82, 32768), (75, 32768))
+SAMPLE_ROWS = 2048
+STATEMENT_QUERY_ROWS = 84
 CROSSOVER_SWEEP = (256, 1024, 2048, 4096, 8192, 16384, 32768)
 
 SOURCE = "vectorx_tpu_torch/csrc/poseidon.cu"
@@ -205,6 +239,41 @@ def check_duplex(states):
     return plain_s
 
 
+def record_duplex_shapes(seen: set) -> None:
+    """From here on note the (data length, flush, squeezes) of every
+    `duplex` launch in `seen`; the launch and its count are unchanged."""
+    launch = pc.duplex
+
+    def duplex(state, data, flush, n_squeeze):
+        seen.add((data.shape[0], bool(flush), int(n_squeeze)))
+        return launch(state, data, flush, n_squeeze)
+
+    pc.duplex = duplex
+
+
+def check_duplex_shapes(rng, dev, shapes) -> None:
+    """`duplex` against `duplex_plain` at every shape the main paths'
+    transcripts gave it, on seeded data biased to the carry boundaries."""
+    longest = max(m for m, _, _ in shapes)
+    flat = torch.from_numpy(
+        boundary_states(rng, longest // 12 + 2, gl.MODULUS).view(np.int64)
+    ).to(dev).reshape(-1)
+    state0 = flat[:12].contiguous()
+    for m, flush, n in sorted(shapes):
+        data = flat[12:12 + m].contiguous()
+        want = ps.duplex_plain(state0, data, flush, n)
+        got = pc.duplex(state0, data, flush, n)
+        what = f"duplex len={m} flush={flush} squeeze={n}"
+        must_equal("duplex", got[0], want[0], what + " state")
+        must_equal("duplex", got[1], want[1], what + " output")
+    absorbs = sorted({m // 8 for m, flush, _ in shapes if not flush})
+    squeezes = sorted({(m, n) for m, flush, n in shapes if flush})
+    log("poseidon-duplex-path", bit_equal=True, shapes=len(shapes),
+        absorb_chunks="|".join(map(str, absorbs)),
+        flush_pending_x_squeeze="|".join(f"{m}x{n}" for m, n in squeezes),
+        max_abs_err=max_abs_err["duplex"])
+
+
 def old_leaf_loop(rows: torch.Tensor) -> torch.Tensor:
     """Leaf hashing as it ran before sponge_rows: a permute launch and a
     concatenation per chunk (timed beside the fused kernel)."""
@@ -249,6 +318,41 @@ def check_sponge(rng, dev, p: int):
     return plain_s, trace_cols
 
 
+def check_sponge_large(dev, p: int) -> torch.Tensor:
+    """sponge_rows at the statements' shapes: the whole matrix through the
+    kernel, a seeded sample of its rows through the plain sponge; and the
+    same widths at the verifier's query rows in full. Returns the
+    (314, 524288) matrix for the timing."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rng = np.random.default_rng(13)
+    kept = None
+    for w, n in SPONGE_LARGE:
+        # hi word below 2^32 - 1, so every value is canonical
+        cols = ((torch.randint(0, (1 << 32) - 1, (w, n), generator=gen,
+                               device=dev) << 32)
+                | torch.randint(0, 1 << 32, (w, n), generator=gen, device=dev))
+        edge = torch.from_numpy(
+            boundary_states(rng, 4096, p).T.copy().view(np.int64)).to(dev)
+        cols[:min(w, 12), :4096] = edge[:min(w, 12)]
+        cols[:min(w, 12), -4096:] = edge[:min(w, 12)]
+        got = ps.hash_many(cols.t())
+        idx = torch.from_numpy(np.unique(np.concatenate([
+            [0, 1, 4095, 4096, n - 4097, n - 2, n - 1],
+            rng.integers(0, n, SAMPLE_ROWS)]))).to(dev)
+        want = ps.hash_many_plain(cols[:, idx].t().contiguous())
+        must_equal("sponge_rows", got[idx], want,
+                   f"sponge_rows {n}x{w} column-major, sampled rows")
+        few = cols[:, :STATEMENT_QUERY_ROWS].t().contiguous()      # (84, w)
+        want = ps.hash_many_plain(few)
+        must_equal("sponge_rows", ps.hash_many(few), want, f"sponge_rows 84x{w}")
+        must_equal("sponge_rows", pc._sponge_rows(few, False), want,
+                   f"sponge_rows 84x{w} thread route")
+        if kept is None:
+            kept = cols
+        del cols, got
+    return kept
+
+
 def phase_poseidon(rng, dev, sm_mhz: float):
     """Every entry against its plain version, then the times."""
     p = gl.MODULUS
@@ -259,6 +363,7 @@ def phase_poseidon(rng, dev, sm_mhz: float):
     check_permute(states, states_np)
     chain_plain_s = check_duplex(states)
     sponge_plain_s, trace_cols = check_sponge(rng, dev, p)
+    big_cols = check_sponge_large(dev, p)
     log("poseidon", bit_equal="permute|duplex|sponge_rows",
         permute_shapes="|".join("x".join(map(str, s)) for s in PATH_SHAPES),
         permute_ints_rows=512, chains="|".join(map(str, CHAIN_CHUNKS)),
@@ -266,6 +371,8 @@ def phase_poseidon(rng, dev, sm_mhz: float):
         squeezes="|".join(map(str, SQUEEZES)),
         sponge_widths="|".join(map(str, SPONGE_WIDTHS)),
         sponge_rows="|".join(map(str, SPONGE_ROWS)),
+        sponge_large="|".join(f"{w}x{n}" for w, n in SPONGE_LARGE),
+        sampled_rows=SAMPLE_ROWS,
         max_abs_err=max(max_abs_err.values()))
 
     # -- permute -----------------------------------------------------------
@@ -337,6 +444,27 @@ def phase_poseidon(rng, dev, sm_mhz: float):
         bound_by=s_by, share_of_bound=f"{s_ms / fused_ms:.3f}")
     sponge = dict(max_abs_err=max_abs_err["sponge_rows"], ms=fused_ms,
                   plain_ms=sponge_plain_s * 1e3, bound_ms=s_ms, bound_by=s_by)
+
+    # -- sponge_rows at the chain statement's trace commit, (314, 524288) ----
+    bw, bn = big_cols.shape
+    big_view = big_cols.t()
+    big_ms = event_ms(lambda: pc.sponge_rows(big_view), 5)
+    g_ms, g_by = bound_ms(bn * -(-bw // 8), (bn * bw + bn * 4) * 8, sm_mhz)
+    sample = big_cols[:, :SAMPLE_ROWS].t().contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps.hash_many_plain(sample)
+    torch.cuda.synchronize()
+    plain_sample_ms = (time.perf_counter() - t0) * 1e3
+    log("poseidon-sponge-large", shape=f"{bw}x{bn} column-major",
+        ms=f"{big_ms:.4f}", bound_ms=f"{g_ms:.4f}", bound_by=g_by,
+        share_of_bound=f"{g_ms / big_ms:.3f}",
+        ns_per_permutation=f"{big_ms * 1e6 / (bn * -(-bw // 8)):.3f}",
+        plain_ms_for_2048_rows=f"{plain_sample_ms:.1f}",
+        first_tree_level_262144_pairs_ms=f"{t[262144]:.4f}")
+    sponge.update(ms_314x524288=big_ms, bound_ms_314x524288=g_ms,
+                  plain_ms_2048_rows_of_314=plain_sample_ms)
+    permute.update(ms_262144=t[262144])
     return {"permute": permute, "duplex": duplex, "sponge_rows": sponge}
 
 
@@ -382,33 +510,55 @@ def phase_small():
         **{f"{k}_launches": v for k, v in launched.items()})
 
 
+def timed_prove(air, case, cfg):
+    """-> (proof, seconds, per-phase seconds, launches per entry); a
+    synchronize at each phase end."""
+    split = {}
+    last = [time.perf_counter()]
+
+    def mark(phase):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[phase] = now - last[0]
+        last[0] = now
+
+    before = dict(pc.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proof = prover.prove(air, *case, cfg, timer=mark)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return proof, seconds, split, {k: pc.launches[k] - before[k]
+                                   for k in before}
+
+
+def timed_verify(air, proof, pubs, log_n, cfg):
+    """-> (accepted, seconds, launches per entry)."""
+    before = dict(pc.launches)
+    t0 = time.perf_counter()
+    ok = verifier.verify(air, proof, pubs, log_n, cfg)
+    torch.cuda.synchronize()
+    return ok, time.perf_counter() - t0, {k: pc.launches[k] - before[k]
+                                          for k in before}
+
+
+def flipped(proof, field: str):
+    """A copy of the proof with one bit of one opened row flipped."""
+    bad = copy.copy(proof)
+    rows = getattr(proof, field).clone()
+    rows[0, 0] ^= 1
+    setattr(bad, field, rows)
+    return bad
+
+
 def phase_slice():
     rng = np.random.default_rng(3)
     air, log_n, cfg = slice_setup()
     cases = [header_case(air, make_header(rng, 1000 + i, HEADER_BYTES))
              for i in range(3)]
 
-    def timed_prove(case):
-        split = {}
-        last = [time.perf_counter()]
-
-        def mark(phase):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            split[phase] = now - last[0]
-            last[0] = now
-
-        before = dict(pc.launches)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        proof = prover.prove(air, *case, cfg, timer=mark)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        return proof, seconds, split, {k: pc.launches[k] - before[k]
-                                       for k in before}
-
-    _, cold, _, _ = timed_prove(cases[0])
-    warm = [timed_prove(c) for c in cases]
+    _, cold, _, _ = timed_prove(air, cases[0], cfg)
+    warm = [timed_prove(air, c, cfg) for c in cases]
     best = min(range(3), key=lambda i: warm[i][1])
     proof, best_s, split, per_prove = warm[best]
     log("slice", air=f"HeaderAir({HEADER_CHUNKS})", rows=air.n_rows,
@@ -416,17 +566,12 @@ def phase_slice():
         warm_s=",".join(f"{w[1]:.4f}" for w in warm), warm_min_s=f"{best_s:.4f}")
     log("slice-split", **{k: f"{v:.4f}" for k, v in split.items()})
 
-    before = dict(pc.launches)
-    t0 = time.perf_counter()
-    ok = verifier.verify(air, proof, cases[best][1], log_n, cfg)
-    torch.cuda.synchronize()
-    verify_s = time.perf_counter() - t0
-    per_verify = {k: pc.launches[k] - before[k] for k in before}
+    ok, verify_s, per_verify = timed_verify(air, proof, cases[best][1], log_n,
+                                            cfg)
     if not ok:
         raise AssertionError("the port verifier rejected an honest proof")
-    proof.trace_rows_a = proof.trace_rows_a.clone()
-    proof.trace_rows_a[0, 0] ^= 1
-    if verifier.verify(air, proof, cases[best][1], log_n, cfg):
+    if verifier.verify(air, flipped(proof, "trace_rows_a"), cases[best][1],
+                       log_n, cfg):
         raise AssertionError("the port verifier accepted a tampered proof")
     log("slice-verify", accepted=True, tampered_rejected=True,
         verify_s=f"{verify_s:.4f}")
@@ -437,6 +582,179 @@ def phase_slice():
         per_verify=sum(per_verify.values()))
 
 
+class RangeAir(Air):
+    """Two committed columns, both range-checked to [0, n_rows) via LogUp;
+    one public pins the first row of column 0."""
+    num_cols = 2
+    num_publics = 1
+
+    def lookup_range_columns(self):
+        return [0, 1]
+
+    def first_row(self, alg, local, publics, consts=()):
+        return [alg.sub(local[0], alg.lift(publics[0]))]
+
+
+class RamAir(Air):
+    """One committed value column; mult/load/addr/active flags in constant
+    columns. Rows 0-7 store addresses 100..107, rows 12-19 load them
+    reversed, row 24 loads 100 again, row 25 is a store nobody loads."""
+    num_cols = 1
+    num_publics = 1
+
+    def ram_multiset(self):
+        return (0, 1, 2, 3, 0)          # mult, load, addr, active; value column
+
+    def constant_columns(self, n_rows):
+        out = np.zeros((4, n_rows), dtype=np.uint64)
+        for i in range(8):
+            out[:, i] = (2 if i == 0 else 1, 0, 100 + i, 1)
+            out[:, 12 + i] = (0, 1, 107 - i, 1)
+        out[:, 24] = (0, 1, 100, 1)
+        out[:, 25] = (0, 0, 200, 1)
+        return out
+
+    @staticmethod
+    def values():
+        vals = np.zeros(32, dtype=np.uint64)
+        vals[:8] = 1000 + 7 * np.arange(8)
+        vals[12:20] = vals[:8][::-1]
+        vals[24], vals[25] = vals[0], 424242
+        return vals[None, :]
+
+
+def phase_aux_small():
+    """The LogUp and RAM aux phases on the card against the CPU."""
+    cfg = prover.StarkConfig(rate_bits=2, num_queries=6, final_poly_len=4,
+                             pow_bits=8)
+    rng = np.random.default_rng(11)
+    in_range = rng.integers(0, 64, (2, 64), dtype=np.uint64)
+    out_of_range = in_range.copy()
+    out_of_range[1, 17] = 64 + 3
+    for name, air, log_n, good, bad in (
+            ("range", RangeAir(), 6, in_range, out_of_range),
+            ("ram", RamAir(), 5, RamAir.values(), None)):
+        pub = int(good[0, 0])
+        on_card = prover.prove(air, gl.to_fp(good), [gl.to_fp(pub)], cfg)
+        on_cpu = prover.prove(air, gl.to_fp(good, "cpu"),
+                              [gl.to_fp(pub, "cpu")], cfg)
+        if serialize.payload(on_card) != serialize.payload(on_cpu):
+            raise AssertionError(f"{name}: payloads differ between CUDA and CPU")
+        if not verifier.verify(air, on_card, [gl.to_fp(pub)], log_n, cfg):
+            raise AssertionError(f"{name}: honest proof rejected")
+        if verifier.verify(air, flipped(on_card, "aux_rows_a"),
+                           [gl.to_fp(pub)], log_n, cfg):
+            raise AssertionError(f"{name}: forged aux row accepted")
+        rejected = "n/a"
+        if bad is not None:
+            forged = prover.prove(air, gl.to_fp(bad), [gl.to_fp(pub)], cfg)
+            if verifier.verify(air, forged, [gl.to_fp(pub)], log_n, cfg):
+                raise AssertionError(f"{name}: out-of-range value accepted")
+            rejected = True
+        log("aux-small", air=name, aux_cols=prover.total_aux_cols(air),
+            payload_bytes=len(serialize.payload(on_card)), identical=True,
+            accepted=True, forged_aux_row_rejected=True,
+            out_of_range_rejected=rejected)
+
+
+STATEMENT_CFG = prover.StarkConfig(rate_bits=2, num_queries=42,
+                                   final_poly_len=8,
+                                   pow_bits=prover.PRODUCTION_POW_BITS)
+STATEMENTS = ("merkle", "chain", "sha512")
+
+
+def _random_bytes32(rng, count: int):
+    return [bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(count)]
+
+
+def _be_words(raw: bytes):
+    return [int.from_bytes(raw[4 * i:4 * i + 4], "big") for i in range(8)]
+
+
+def _digest(words) -> bytes:
+    return b"".join(int(w).to_bytes(4, "big") for w in words)
+
+
+def statement_case(name: str):
+    """-> (air, (trace, publics) on the card, log_n, witness seconds, the
+    field of the proof to tamper with). Inputs come from seeds; the public
+    output is held against hashlib."""
+    t0 = time.perf_counter()
+    if name == "merkle":
+        # a header_range_256 range commitment: 200 roots, zero-padded
+        tree = consts.HEADER_RANGE_TREE_SIZE_SMALL
+        roots = _random_bytes32(np.random.default_rng(21), 200)
+        leaves = roots + [bytes(32)] * (tree - len(roots))
+        air = MerkleSha256Air([_be_words(leaf) for leaf in leaves])
+        trace, publics, root = air.make_trace()
+        if _digest(root) != commitments.range_commitments(roots, roots, tree)[0]:
+            raise AssertionError("MerkleSha256Air root != hashlib Merkle root")
+        field = "trace_rows_b"
+    elif name == "chain":
+        n_max = consts.MAX_AUTHORITY_SET_SIZE
+        keys = _random_bytes32(np.random.default_rng(22), n_max)
+        air = ChainedSha256Air(n_max)
+        trace, publics, out = air.make_trace(air.pubkeys_to_words(keys, n_max),
+                                             n_max)
+        if _digest(out) != commitments.authority_set_hash(keys):
+            raise AssertionError("ChainedSha256Air digest != hashlib chain")
+        field = "const_rows_a"
+    elif name == "sha512":
+        # 30 lanes (a, r, s, h) with h = SHA-512(r|a|M) mod L, all the AIR
+        # binds, and 2 disabled lanes
+        rng = np.random.default_rng(23)
+        message = bytes(rng.integers(0, 256, consts.ENCODED_PRECOMMIT_LENGTH,
+                                     dtype=np.uint8))
+        lanes = []
+        for _ in range(30):
+            a, r, s = _random_bytes32(rng, 3)
+            h = int.from_bytes(hashlib.sha512(r + a + message).digest(),
+                               "little") % L_ORDER
+            lanes.append((a, r, int.from_bytes(s, "little") >> 4, h))
+        air = Sha512ChallengeAir(lanes + [dummy_sig()] * 2, message, B=13)
+        trace, publics = air.make_trace()      # checks each digest (hashlib)
+        if publics[0] != 32:
+            raise AssertionError("Sha512ChallengeAir lane count")
+        field = "aux_rows_a"
+    else:
+        raise SystemExit(f"chip_smoke: unknown statement {name!r}")
+    witness_s = time.perf_counter() - t0
+    if (trace.shape != (air.num_cols, air.n_rows)
+            or trace.device != default_device()):
+        raise AssertionError(f"{name}: trace {tuple(trace.shape)} on {trace.device}")
+    case = (trace, [gl.to_fp(int(v)) for v in publics])
+    return air, case, air.n_rows.bit_length() - 1, witness_s, field
+
+
+def phase_statement(name: str):
+    cfg = STATEMENT_CFG
+    air, case, log_n, witness_s, field = statement_case(name)
+    torch.cuda.reset_peak_memory_stats()
+    _, cold, _, _ = timed_prove(air, case, cfg)
+    proof, warm, split, per_prove = timed_prove(air, case, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    ok, verify_s, per_verify = timed_verify(air, proof, case[1], log_n, cfg)
+    if not ok:
+        raise AssertionError(f"{name}: the port verifier rejected an honest proof")
+    if verifier.verify(air, flipped(proof, field), case[1], log_n, cfg):
+        raise AssertionError(f"{name}: the port verifier accepted a tampered proof")
+    log("statement", air=type(air).__name__, rows=air.n_rows,
+        cols=air.num_cols, aux_cols=prover.total_aux_cols(air),
+        consts=air.constant_columns(2).shape[0],
+        lde=air.n_rows << cfg.rate_bits, public_output="hashlib",
+        witness_s=f"{witness_s:.3f}", cold_s=f"{cold:.4f}",
+        warm_s=f"{warm:.4f}", verify_s=f"{verify_s:.4f}", accepted=True,
+        tampered_rejected=field, payload_bytes=len(serialize.payload(proof)),
+        peak_memory_bytes=peak)
+    log("statement-split", air=type(air).__name__,
+        **{k: f"{v:.4f}" for k, v in split.items()})
+    log("statement-launches", air=type(air).__name__,
+        **{f"{k}_per_warm_prove": v for k, v in per_prove.items()},
+        **{f"{k}_per_verify": v for k, v in per_verify.items()})
+    del air, proof, case        # with the air goes its cached constant LDE
+    torch.cuda.empty_cache()
+
+
 def slice_setup():
     air = ah.HeaderAir(max_chunks=HEADER_CHUNKS)
     cfg = prover.StarkConfig(rate_bits=3, num_queries=28, final_poly_len=8,
@@ -444,12 +762,18 @@ def slice_setup():
     return air, air.n_rows.bit_length() - 1, cfg
 
 
-def phase_profile():
+def phase_profile(which: str):
     """Where the device time of one warm prove and one verify goes."""
     from torch.profiler import ProfilerActivity, profile
-    air, log_n, cfg = slice_setup()
-    case = header_case(air, make_header(np.random.default_rng(3), 1000,
-                                        HEADER_BYTES))
+    if which == "header":
+        air, log_n, cfg = slice_setup()
+        case = header_case(air, make_header(np.random.default_rng(3), 1000,
+                                            HEADER_BYTES))
+    else:
+        air, case, log_n, _, _ = statement_case(which)
+        cfg = STATEMENT_CFG
+    log("profile", proof=which, air=type(air).__name__, rows=air.n_rows,
+        cols=air.num_cols, lde=air.n_rows << cfg.rate_bits)
     proof = prover.prove(air, *case, cfg)                     # cold: VK, tables
     if not verifier.verify(air, proof, case[1], log_n, cfg):
         raise AssertionError("the port verifier rejected an honest proof")
@@ -508,26 +832,40 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
 
-    if sys.argv[1:] == ["--profile"]:
-        phase_profile()
+    args = sys.argv[1:]
+    if args[:1] == ["--profile"] and len(args) <= 2:
+        phase_profile(args[1] if len(args) == 2 else "header")
         print(smi)
         return 0
-    if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+    if args:
+        raise SystemExit(f"chip_smoke: unknown arguments {args}")
 
     stats = phase_poseidon(np.random.default_rng(11), dev, sm_mhz)
     phase_small()
+    phase_aux_small()
 
-    pc.reset_launches()
-    phase_slice()
-    launches = dict(pc.launches)
-    log("slice-launches-total", **launches, total=sum(launches.values()))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"the main path skipped a kernel: {launches}")
+    # the main paths, each proof with the counts set to 0 just before it
+    duplex_shapes = set()
+    record_duplex_shapes(duplex_shapes)
+    by_path = {}
+    for path, run in [("slice", phase_slice)] + [
+            (name, lambda name=name: phase_statement(name))
+            for name in STATEMENTS]:
+        pc.reset_launches()
+        run()
+        by_path[path] = launches = dict(pc.launches)
+        log(f"{path}-launches-total", **launches, total=sum(launches.values()))
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"the {path} path skipped a kernel: {launches}")
+    check_duplex_shapes(np.random.default_rng(17), dev, duplex_shapes)
+    stats["duplex"]["max_abs_err"] = max_abs_err["duplex"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": launches[name], "library_ms": None, **stats[name]}
+         "launches": sum(launches[name] for launches in by_path.values()),
+         "launches_by_path": {path: launches[name]
+                              for path, launches in by_path.items()},
+         "library_ms": None, **stats[name]}
         for name in ("permute", "duplex", "sponge_rows")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

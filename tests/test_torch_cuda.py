@@ -99,6 +99,64 @@ def test_sponge_rows_matches_plain_on_card(card, width, n):
                            want.reshape(n, 1, 4))
 
 
+@pytest.mark.parametrize("width,n", [(314, 524288), (368, 262144),
+                                     (685, 32768), (82, 32768), (10, 524288),
+                                     (48, 262144), (75, 32768)])
+def test_sponge_rows_at_statement_shapes_on_card(card, width, n):
+    """The column-major matrices the statement proofs commit (trace, aux,
+    constants): the whole matrix through the kernel, 1024 seeded rows (first
+    and last included) through the plain sponge; and the 84 query rows of a
+    42-query verify in full."""
+    gen = torch.Generator(device=card).manual_seed(width)
+    cols = ((torch.randint(0, (1 << 32) - 1, (width, n), generator=gen,
+                           device=card) << 32)
+            | torch.randint(0, 1 << 32, (width, n), generator=gen, device=card))
+    cols[:, 0] = gl.P_I64 - 1
+    cols[:, -1] = 0
+    idx = torch.cat([torch.tensor([0, n - 1], device=card),
+                     torch.randint(0, n, (1022,), generator=gen, device=card)])
+    got = ps.hash_many(cols.t())
+    assert got.shape == (n, 4)
+    assert torch.equal(got[idx], ps.hash_many_plain(cols[:, idx].t().contiguous()))
+    few = cols[:, :84].t().contiguous()
+    assert torch.equal(ps.hash_many(few), ps.hash_many_plain(few))
+
+
+@pytest.mark.parametrize("n", [42, 84, 262144])
+def test_permute_at_statement_shapes_on_card(card, n):
+    """The verifier's 42- and 84-row paths and the first tree level under
+    524288 leaves."""
+    x = _states(23, n).to(card)
+    got = poseidon_cuda.permute(x)
+    rows = slice(0, None) if n < 1000 else slice(n - 512, n)
+    assert torch.equal(got[rows], ps.permute_plain(x[rows]))
+    assert torch.equal(got[:64], ps.permute_plain(x[:64]))
+
+
+def test_lookup_proof_same_on_card_and_cpu(card):
+    """The LogUp aux phase (prefix sums, multiplicities, aux commit)."""
+    from vectorx_tpu_torch.stark.air import Air
+
+    class RangeAir(Air):
+        num_cols = 2
+        num_publics = 1
+
+        def lookup_range_columns(self):
+            return [0, 1]
+
+        def first_row(self, alg, local, publics, consts=()):
+            return [alg.sub(local[0], alg.lift(publics[0]))]
+
+    cfg = prover.StarkConfig(rate_bits=2, num_queries=6, final_poly_len=4)
+    vals = np.random.default_rng(11).integers(0, 64, (2, 64), dtype=np.uint64)
+    proofs = [prover.prove(RangeAir(), gl.to_fp(vals, d),
+                           [gl.to_fp(int(vals[0, 0]), d)], cfg)
+              for d in ("cpu", card)]
+    assert serialize.payload(proofs[0]) == serialize.payload(proofs[1])
+    assert verifier.verify(RangeAir(), proofs[1],
+                           [gl.to_fp(int(vals[0, 0]), card)], 6, cfg)
+
+
 def test_kernel_wrapper_rejects_what_it_cannot_launch_on_card(card):
     x = _states(22, 8).to(card)
     with pytest.raises(TypeError):

@@ -19,9 +19,15 @@ from vectorx_tpu_torch import convert
 from vectorx_tpu_torch.field import ext
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.poly import domain as dom
+from vectorx_tpu_torch.hashes import sha256 as s2
+from vectorx_tpu_torch.hashes import sha512 as s5
 from vectorx_tpu_torch.stark import air_blake2b as b2
 from vectorx_tpu_torch.stark import air_header as ah
+from vectorx_tpu_torch.stark import air_poseidon as apos
 from vectorx_tpu_torch.stark import air_sha256 as sha
+from vectorx_tpu_torch.stark import air_sha256_chain as chain
+from vectorx_tpu_torch.stark import air_sha256_merkle as merkle
+from vectorx_tpu_torch.stark import air_sha512 as a512
 from vectorx_tpu_torch.stark import prover, serialize
 from vectorx_tpu_torch.stark.air import (BaseVecAlgebra, ExtAlgebra,
                                          FibonacciAir)
@@ -61,6 +67,24 @@ ENTRY_POINTS = {
     "HeaderAir.make_trace": (
         lambda d: ah.HeaderAir(max_chunks=1).make_trace(HEADER, d),
         lambda r: r[0]),
+    "PoseidonChainAir.make_trace": (
+        lambda d: apos.PoseidonChainAir.make_trace(list(range(12)), 1, d),
+        lambda r: r[0]),
+    "ChainedSha256Air.make_trace": (
+        lambda d: chain.ChainedSha256Air(1).make_trace([list(range(8))], 1, d),
+        lambda r: r[0]),
+    "MerkleSha256Air.make_trace": (
+        lambda d: merkle.MerkleSha256Air(
+            [list(range(8)), list(range(8))]).make_trace(d), lambda r: r[0]),
+    "Sha512ChallengeAir.make_trace": (
+        lambda d: a512.Sha512ChallengeAir([], bytes(53)).make_trace(d),
+        lambda r: r[0]),
+    "sha256_bytes": (
+        lambda d: torch.from_numpy(s2.sha256_bytes([b"abc"], d).astype(np.int64)),
+        lambda r: r),
+    "sha512_bytes": (
+        lambda d: torch.tensor(list(s5.sha512_bytes([b"abc"], d)[0])),
+        lambda r: r),
     "constant_vk": (
         lambda d: prover.constant_vk(
             CONST_AIR, 7, prover.StarkConfig(rate_bits=1), d),

@@ -132,12 +132,20 @@ def test_check_constraints_on_trace():
 
 
 def test_prove_refuses_lookup_airs():
+    """The prover used to refuse AIRs with LogUp lookups (NotImplementedError);
+    with the aux phase ported it refuses nothing: the proof carries an aux
+    commitment. The Fibonacci column leaves the table [0, 16), so this
+    proof must not verify (honest lookups, and parity with the reference,
+    are in test_torch_lookup.py)."""
     class LookupAir(FibonacciAir):
         def lookup_range_columns(self):
             return [0]
 
     trace, publics = FibonacciAir.make_trace(16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        prover.prove(LookupAir(), trace, [gl.to_fp(p, "cpu") for p in publics],
-                     prover.StarkConfig(rate_bits=1, num_queries=2,
-                                        final_poly_len=2))
+    pubs = [gl.to_fp(p, "cpu") for p in publics]
+    cfg = prover.StarkConfig(rate_bits=1, num_queries=2, final_poly_len=2)
+    assert not hasattr(prover, "require_no_aux")
+    proof = prover.prove(LookupAir(), trace, pubs, cfg)
+    assert proof.aux_cap is not None
+    assert proof.aux_zeta[0].shape == (prover.num_aux_cols(1),)
+    assert not verifier.verify(LookupAir(), proof, pubs, 4, cfg)

@@ -4,11 +4,14 @@ hand-written CUDA kernels for an NVIDIA H100.
 Mirrors the JAX package's layout (which stays the reference):
 
 - ``field``    — Goldilocks GF(p) / GF(p^2) on int64 tensors
-- ``hashes``   — Poseidon (transcript and Merkle hash)
+- ``hashes``   — Poseidon (transcript and Merkle hash), batched SHA-256 and
+                 SHA-512
 - ``ops``      — CUDA kernels (``csrc/``) and their wrappers
 - ``poly``     — NTT / LDE / barycentric evaluation
-- ``stark``    — AIRs, Merkle commitments, FRI, prover/verifier
-- ``circuits`` — the SCALE host codec
+- ``stark``    — AIRs, Merkle commitments, FRI, prover/verifier (with the
+                 LogUp range lookups and the RAM multiset)
+- ``circuits`` — the SCALE host codec, size bounds, the public commitments
+                 (authority-set hash, range Merkle roots), Ed25519 constants
 - ``convert``  — carries arrays and proofs to and from the JAX package
 
 Entry points that create tensors take ``device=None`` and resolve it with
@@ -19,7 +22,7 @@ tensors follow their inputs' device.
 
 import torch
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 
 def default_device(device=None) -> torch.device:

@@ -244,6 +244,20 @@ def sum_mod(a: Fp, axis: int = -1) -> Fp:
     return _reduce_sums(_lo32(a).sum(axis), _hi32(a).sum(axis))
 
 
+def prefix_sum_mod(a: Fp) -> Fp:
+    """Exclusive running modular sum over the last axis: out[i] = a[0] +
+    ... + a[i-1] (mod p), so out[0] = 0. ``torch.cumsum`` on the bit
+    patterns would wrap mod 2^64, so the 32-bit halves are summed in int64
+    (exact for fewer than 2^31 terms) and each prefix reduced once, as
+    ``sum_mod`` does."""
+    n = a.shape[-1]
+    if n >= (1 << 31):
+        raise ValueError(f"prefix_sum_mod: too many terms ({n})")
+    before = torch.nn.functional.pad(a[..., :-1], (1, 0))
+    return _reduce_sums(torch.cumsum(_lo32(before), -1),
+                        torch.cumsum(_hi32(before), -1))
+
+
 def is_zero(a: Fp):
     return a == 0
 

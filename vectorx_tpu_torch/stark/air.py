@@ -136,11 +136,24 @@ class Air:
     max_constraint_degree: int = 3
 
     def ram_multiset(self):
-        """None, or the pair-multiset memory argument (not in this port)."""
+        """None, or (mult_cidx, load_cidx, addr_cidx, active_cidx, val_col)
+        declaring a pair-multiset memory argument over the trace:
+
+            Σ_stores mult(r)/(γ − addr(r) − δ·val(r))
+                == Σ_loads 1/(γ − addr(r) − δ·val(r))
+
+        mult (how many loads a store serves; 0 is legal), load (0/1) and
+        active (0/1: store-or-load row) are CONSTANT-column flags, addr a
+        CONSTANT column, val a COMMITTED column. γ, δ are squeezed after
+        the trace commitment. Adds 4 aux base columns (inv re/im,
+        running-sum re/im) to the aux commitment (prover.py)."""
         return None
 
     def lookup_range_columns(self) -> List[int]:
-        """Trace column indices range-checked via LogUp (not in this port)."""
+        """Trace column indices range-checked to [0, n_rows) via LogUp: the
+        table is the row ramp 0..n_rows-1. The aux columns (inverses,
+        running sum, multiplicities) are built by the prover after the
+        trace commitment and a dedicated challenge γ; see prover.py."""
         return []
 
     def constant_columns(self, n_rows: int):

@@ -13,11 +13,10 @@
   7. query openings    — committed rows + Merkle paths at FRI indices
 
 Transcript order (verifier.py mirrors it exactly): publics | [VK cap if the
-AIR has constant columns] | trace cap | α | quotient cap | ζ | openings
-(trace ζ, trace gζ, [const ζ, const gζ], quotient ζ) | β | FRI.
-
-AIRs with LogUp lookups or the RAM multiset are not supported by this port
-yet: ``prove`` raises NotImplementedError for them.
+AIR has constant columns] | trace cap | [γ, then δ if the AIR has a RAM |
+aux cap, if the AIR has lookups or a RAM] | α | quotient cap | ζ | openings
+(trace ζ, trace gζ, [aux ζ, aux gζ], [const ζ, const gζ], quotient ζ) | β |
+FRI.
 """
 
 from __future__ import annotations
@@ -81,9 +80,11 @@ class StarkProof:
     quot_rows_b: gl.Fp
     quot_paths_a: gl.Fp
     quot_paths_b: gl.Fp
-    # LogUp/RAM aux commitment: always None in this port
+    # LogUp/RAM aux commitment (present iff the AIR has range lookups or a
+    # RAM multiset); base columns [inv_k(re,im)]*K | inv_t(re,im) | m |
+    # S(re,im) | t, then the RAM block inv(re,im) | S(re,im)
     aux_cap: gl.Fp | None = None
-    aux_zeta: ext.Fp2 | None = None
+    aux_zeta: ext.Fp2 | None = None     # (num_aux,)
     aux_gzeta: ext.Fp2 | None = None
     aux_rows_a: gl.Fp | None = None
     aux_rows_b: gl.Fp | None = None
@@ -97,13 +98,6 @@ class StarkProof:
     const_rows_b: gl.Fp | None = None
     const_paths_a: gl.Fp | None = None
     const_paths_b: gl.Fp | None = None
-
-
-def require_no_aux(air: Air) -> None:
-    if air.lookup_range_columns() or air.ram_multiset() is not None:
-        raise NotImplementedError(
-            f"{type(air).__name__}: LogUp lookups and the RAM multiset are "
-            "not ported yet")
 
 
 # -- Fp2 vector helpers ---------------------------------------------------------
@@ -120,8 +114,10 @@ def _alpha_power_array(alpha: ext.Fp2, n: int) -> ext.Fp2:
     return re[:n], im[:n]
 
 
-def _slice_ext(v: ext.Fp2, a: int, b: int) -> ext.Fp2:
-    return v[0][a:b], v[1][a:b]
+def _slice_ext(v: ext.Fp2, a, b: int | None = None) -> ext.Fp2:
+    """v[a:b] along axis 0, or v[a] for a slice object ``a``."""
+    sl = a if isinstance(a, slice) else slice(a, b)
+    return v[0][sl], v[1][sl]
 
 
 def _pick_ext(v: ext.Fp2, i: int) -> ext.Fp2:
@@ -177,6 +173,156 @@ def constant_vk(air: Air, log_n: int, config: StarkConfig, device=None):
     return cache[key]
 
 
+# -- LogUp range-check lookup (air.lookup_range_columns) and RAM multiset ----------
+# Identity proven:  Σ_r Σ_k 1/(γ - w_k(r)) == Σ_r m(r)/(γ - r)
+# i.e. every looked-up value lies in the row ramp [0, n_rows). Looked
+# columns are PAIRED: one witnessed inverse serves two columns via
+#   (γ - w0)(γ - w1)·inv = 1        (degree 3 — exactly the AIR budget)
+#   pair contribution = inv·(2γ - w0 - w1) = 1/(γ-w0) + 1/(γ-w1)
+# Odd column counts are padded by repeating the last column (its
+# multiplicity simply counts twice). Aux base columns:
+# [inv_k.re, inv_k.im]*ceil(K/2) | inv_t.re, inv_t.im | m | S.re, S.im | t
+# where S is the exclusive running sum and t the table ramp itself,
+# committed so that t(ζ) is an ordinary opening (pinned by t(0)=0, t'=t+1).
+
+def num_aux_cols(n_lookups: int, has_ram: bool = False) -> int:
+    lk = (2 * ((n_lookups + 1) // 2) + 6) if n_lookups else 0
+    return lk + (4 if has_ram else 0)
+
+
+def total_aux_cols(air: Air) -> int:
+    return num_aux_cols(len(air.lookup_range_columns()),
+                        air.ram_multiset() is not None)
+
+
+def _ram_constraint_evals(gamma_r, delta_r, addr_x, mult_x, ld_x, act_x,
+                          val_x, inv_v, s_val, s_next):
+    """Pair-multiset RAM constraints in any ext ring (air.ram_multiset).
+    fp = γ − addr − δ·val; fp·inv == active (forces inv = 0 on inactive
+    rows); S' = S + (mult − load)·inv with S(0) = 0 and S wrapping to 0:
+        Σ_stores mult/fp == Σ_loads 1/fp
+    — every load replays some store's (addr, value). All terms degree ≤ 2.
+    Returns (every, transition, first, last) constraint lists — appended
+    AFTER the LogUp lists in the prover's quotient and the verifier's ALI."""
+    fp = ext.sub(gamma_r, ext.add(addr_x, ext.mul(delta_r, val_x)))
+    def_i = ext.sub(ext.mul(fp, inv_v), act_x)
+    contrib = ext.mul(ext.sub(mult_x, ld_x), inv_v)
+    return ([def_i], [ext.sub(ext.sub(s_next, s_val), contrib)], [s_val],
+            [ext.add(s_val, contrib)])
+
+
+def _padded_lk(lk_cols):
+    lk = list(lk_cols)
+    if len(lk) % 2:
+        lk.append(lk[-1])
+    return lk
+
+
+def _ramp_fp(n: int, device) -> gl.Fp:
+    return torch.arange(n, dtype=torch.int64, device=device)
+
+
+def _recombine_u(re_v: ext.Fp2, im_v: ext.Fp2) -> ext.Fp2:
+    """Value of an ext element stored as two base columns: re + u*im."""
+    a, b = re_v
+    c, d = im_v
+    return gl.add(a, gl.mul_scalar(d, ext.W)), gl.add(b, c)
+
+
+def _lookup_constraint_evals(gamma, w0_g, w1_g, inv_g, inv_t, m_val,
+                             s_val, s_next, t_val, t_next):
+    """The LogUp constraints in any ext ring (vectors at prove time,
+    scalars at ζ for the verifier). ``w0_g``/``w1_g``/``inv_g`` are GROUPED
+    ext elements with the ceil(K/2) column PAIRS stacked on a leading axis.
+    Returns (every, transition, first, last) lists of (possibly grouped)
+    constraints; the degree-3 inverse definitions hold on EVERY row
+    (divisor x^N − 1)."""
+    one = ext.ones((), gamma[0].device)
+    d0 = ext.sub(gamma, w0_g)
+    d1 = ext.sub(gamma, w1_g)
+    defs_g = ext.sub(ext.mul(ext.mul(d0, d1), inv_g), one)
+    def_t = ext.sub(ext.mul(ext.sub(gamma, t_val), inv_t), one)
+    contrib = _ext_sum0(ext.mul(inv_g, ext.add(d0, d1)))    # Σ inv·(2γ-w0-w1)
+    contrib = ext.sub(contrib, ext.mul(m_val, inv_t))
+    le = [defs_g, def_t]
+    lt = [ext.sub(ext.sub(s_next, s_val), contrib),
+          ext.sub(ext.sub(t_next, t_val), one)]     # ramp step t' = t + 1
+    lf = [s_val, t_val]                             # S(0) = 0, t(0) = 0
+    ll = [ext.add(s_val, contrib)]
+    return le, lt, lf, ll
+
+
+def _num_lookup_constraints(n_lookups: int):
+    """(transition, first, last) counts (pairs + table def + sum step)."""
+    kk2 = (n_lookups + 1) // 2
+    return kk2 + 3, 2, kk2 + 2
+
+
+def _exscan(v: ext.Fp2) -> ext.Fp2:
+    return gl.prefix_sum_mod(v[0]), gl.prefix_sum_mod(v[1])
+
+
+def _build_aux_trace(trace: gl.Fp, lk_cols, gamma: ext.Fp2, n: int) -> gl.Fp:
+    """-> (num_aux, n) base-column aux trace (one batched inverse pass over
+    the column-pair denominators plus the table denominator)."""
+    lk = _padded_lk(lk_cols)
+    kk2 = len(lk) // 2
+    dev = trace.device
+    t_ramp = _ramp_fp(n, dev)
+    looked = trace[torch.tensor(lk, device=dev)]               # (2·kk2, n)
+    d = ext.sub(gamma, ext.from_base(looked))
+    d0 = _slice_ext(d, slice(0, None, 2))
+    d1 = _slice_ext(d, slice(1, None, 2))
+    denom_p = ext.mul(d0, d1)                                  # (kk2, n)
+    denom_t = ext.sub(gamma, ext.from_base(t_ramp[None, :]))
+    inv_all = ext.inv((torch.cat([denom_p[0], denom_t[0]]),
+                       torch.cat([denom_p[1], denom_t[1]])))
+    inv_p = _slice_ext(inv_all, slice(0, kk2))
+    inv_t = _pick_ext(inv_all, kk2)
+
+    # multiplicities: a cell outside [0, n) is counted nowhere (its proof
+    # cannot verify); canonical values >= 2^63 read as negative
+    in_range = (looked >= 0) & (looked < n)
+    idx = torch.where(in_range, looked, torch.zeros_like(looked))
+    m_fp = torch.zeros(n, dtype=torch.int64, device=dev).scatter_add_(
+        0, idx.reshape(-1), in_range.reshape(-1).to(torch.int64))
+
+    contrib = _ext_sum0(ext.mul(inv_p, ext.add(d0, d1)))
+    contrib = ext.sub(contrib, ext.mul_base(inv_t, m_fp))
+    s_re, s_im = _exscan(contrib)
+
+    # interleave re/im base columns: inv pairs | inv_t | m | S | t
+    inter = torch.stack([inv_all[0], inv_all[1]], dim=1).reshape(-1, n)
+    return torch.cat([inter, torch.stack([m_fp, s_re, s_im, t_ramp])])
+
+
+def _build_ram_aux(air: Air, trace: gl.Fp, gamma: ext.Fp2,
+                   delta_r: ext.Fp2, cfp: gl.Fp) -> gl.Fp:
+    """(4, n) RAM aux base columns [inv.re | inv.im | S.re | S.im] for
+    air.ram_multiset (see _ram_constraint_evals). ``cfp``: the AIR's
+    constant columns on the trace's device."""
+    mult_c, ld_c, ad_c, act_c, val_col = air.ram_multiset()
+    fp = ext.sub(gamma, ext.add(ext.from_base(cfp[ad_c]),
+                                ext.mul_base(delta_r, trace[val_col])))
+    inv = ext.mul_base(ext.inv(fp), cfp[act_c])       # 0 on inactive rows
+    contrib = ext.mul_base(inv, gl.sub(cfp[mult_c], cfp[ld_c]))
+    s_re, s_im = _exscan(contrib)
+    return torch.stack([inv[0], inv[1], s_re, s_im])
+
+
+def _build_aux(air: Air, trace: gl.Fp, lk_cols, gamma: ext.Fp2,
+               delta_r, n: int, cfp: gl.Fp | None) -> gl.Fp:
+    """Full aux trace: LogUp range block (if any) then the RAM block.
+    ``cfp``: the constant columns on the trace's device, as constant_vk
+    caches them (read only by the RAM block)."""
+    parts = []
+    if lk_cols:
+        parts.append(_build_aux_trace(trace, lk_cols, gamma, n))
+    if air.ram_multiset() is not None:
+        parts.append(_build_ram_aux(air, trace, gamma, delta_r, cfp))
+    return torch.cat(parts)
+
+
 # -- quotient phase ----------------------------------------------------------------
 
 @lru_cache(maxsize=16)
@@ -198,7 +344,7 @@ def _combine(constraints, alphas_all: ext.Fp2, k0: int, acc: ext.Fp2, n_lde: int
     independent constraints, each with its own α."""
     k = k0
     for c in constraints:
-        m = int(np.prod(c.shape[:-1])) if c.dim() > 1 else 1
+        m = _group_size(c)
         cf = c.reshape(m, n_lde)
         a_re, a_im = _ext_col(_slice_ext(alphas_all, k, k + m))
         acc = ext.add(acc, (gl.sum_mod(gl.mul(a_re, cf), axis=0),
@@ -224,10 +370,80 @@ def quotient_tail(quotient: ext.Fp2, n: int, n_chunks: int, rate: int,
     return quot_cols, chunk_evals_lde, chunk_evals_sub
 
 
+def _group_size(c) -> int:
+    """Number of constraints in one (possibly grouped) base or ext
+    constraint over the domain: the product of its leading axes."""
+    shape = (c[0] if isinstance(c, tuple) else c).shape[:-1]
+    return int(np.prod(shape)) if shape else 1
+
+
+def _combine_ext(constraints, alphas_all: ext.Fp2, k0: int, acc: ext.Fp2,
+                 n_lde: int):
+    """α-combine ext-valued constraints (the LogUp/RAM terms); a grouped
+    one takes one α per member in flatten order."""
+    k = k0
+    for c in constraints:
+        m = _group_size(c)
+        if c[0].dim() == 1:
+            acc = ext.add(acc, ext.mul(_pick_ext(alphas_all, k), c))
+        else:
+            cc = (c[0].reshape(m, n_lde), c[1].reshape(m, n_lde))
+            acc = ext.add(acc, _weighted_sum0(
+                cc, _slice_ext(alphas_all, k, k + m)))
+        k += m
+    return acc, k
+
+
+def _aux_constraints(air: Air, blowup: int, trace_lde: gl.Fp, c_lde,
+                     aux_lde: gl.Fp, gamma: ext.Fp2, delta):
+    """The LogUp constraints, then the RAM constraints, over the LDE domain:
+    (every, transition, first, last) lists of ext-valued constraints."""
+    lk_cols = air.lookup_range_columns()
+    ram_spec = air.ram_multiset()
+    lk_e, lk_t, lk_f, lk_l = [], [], [], []
+
+    def pair(i):
+        return aux_lde[i], aux_lde[i + 1]
+
+    def pair_next(i):
+        return (torch.roll(aux_lde[i], -blowup),
+                torch.roll(aux_lde[i + 1], -blowup))
+
+    base_r = 0
+    if lk_cols:
+        lk_p = _padded_lk(lk_cols)
+        kk2 = len(lk_p) // 2
+        base_r = 2 * kk2 + 6
+        w_all = ext.from_base(
+            trace_lde[torch.tensor(lk_p, device=trace_lde.device)])
+        t_col = aux_lde[2 * kk2 + 5]
+        lk_e, lk_t, lk_f, lk_l = _lookup_constraint_evals(
+            gamma,
+            _slice_ext(w_all, slice(0, None, 2)),        # (kk2, N_lde)
+            _slice_ext(w_all, slice(1, None, 2)),
+            (aux_lde[0:2 * kk2:2], aux_lde[1:2 * kk2:2]),
+            pair(2 * kk2), ext.from_base(aux_lde[2 * kk2 + 2]),
+            pair(2 * kk2 + 3), pair_next(2 * kk2 + 3),
+            ext.from_base(t_col), ext.from_base(torch.roll(t_col, -blowup)))
+    if ram_spec is not None:
+        mult_c, ld_c, ad_c, act_c, val_col = ram_spec
+        r_e, r_t, r_f, r_l = _ram_constraint_evals(
+            gamma, delta, ext.from_base(c_lde[ad_c]),
+            ext.from_base(c_lde[mult_c]), ext.from_base(c_lde[ld_c]),
+            ext.from_base(c_lde[act_c]), ext.from_base(trace_lde[val_col]),
+            pair(base_r), pair(base_r + 2), pair_next(base_r + 2))
+        lk_e, lk_t, lk_f, lk_l = lk_e + r_e, lk_t + r_t, lk_f + r_f, lk_l + r_l
+    return lk_e, lk_t, lk_f, lk_l
+
+
 def quotient_phase(air: Air, log_n: int, rate: int, trace_lde: gl.Fp,
-                   c_lde, publics: List[gl.Fp], alpha: ext.Fp2):
-    """Constraint evaluation over the LDE domain, α-combination, vanishing
-    division, chunk split and re-evaluation."""
+                   c_lde, publics: List[gl.Fp], alpha: ext.Fp2,
+                   gamma: ext.Fp2 | None = None, delta: ext.Fp2 | None = None,
+                   aux_lde: gl.Fp | None = None):
+    """Constraint evaluation over the LDE domain (the AIR's, then the
+    LogUp/RAM ones when there is an aux trace), α-combination, vanishing
+    division, chunk split and re-evaluation. α order: transition, LogUp/RAM
+    transition, first, LogUp/RAM first, last, LogUp/RAM last, every-row."""
     n = 1 << log_n
     n_lde = n << rate
     blowup = 1 << rate
@@ -243,14 +459,22 @@ def quotient_phase(air: Air, log_n: int, rate: int, trace_lde: gl.Fp,
     ct = air.transition(alg, local, nxt, publics, consts, consts_next)
     cf = air.first_row(alg, local, publics, consts)
     cl = air.last_row(alg, local, publics, consts)
+    if aux_lde is not None:
+        lk_e, lk_t, lk_f, lk_l = _aux_constraints(
+            air, blowup, trace_lde, c_lde, aux_lde, gamma, delta)
+    else:
+        lk_e, lk_t, lk_f, lk_l = [], [], [], []
 
-    n_constraints = sum(int(np.prod(c.shape[:-1])) if c.dim() > 1 else 1
-                        for c in ct + cf + cl)
+    n_constraints = sum(_group_size(c)
+                        for c in ct + cf + cl + lk_t + lk_f + lk_l + lk_e)
     alphas = _alpha_power_array(alpha, n_constraints)
     k = 0
     ct_comb, k = _combine(ct, alphas, k, ext.zeros((n_lde,), dev), n_lde)
+    ct_comb, k = _combine_ext(lk_t, alphas, k, ct_comb, n_lde)
     cf_comb, k = _combine(cf, alphas, k, ext.zeros((n_lde,), dev), n_lde)
+    cf_comb, k = _combine_ext(lk_f, alphas, k, cf_comb, n_lde)
     cl_comb, k = _combine(cl, alphas, k, ext.zeros((n_lde,), dev), n_lde)
+    cl_comb, k = _combine_ext(lk_l, alphas, k, cl_comb, n_lde)
 
     # quotient: divide by the per-class vanishing polynomials
     xmg, inv_zh, inv_x_minus_1, inv_x_minus_glast = _domain_arrays(
@@ -259,6 +483,11 @@ def quotient_phase(air: Air, log_n: int, rate: int, trace_lde: gl.Fp,
     q_f = ext.mul_base(cf_comb, inv_x_minus_1)
     q_l = ext.mul_base(cl_comb, inv_x_minus_glast)
     quotient = ext.add(ext.add(q_t, q_f), q_l)
+    if lk_e:
+        # the every-row class (the inverse definitions): divisor Z_H
+        ce_comb, k = _combine_ext(lk_e, alphas, k, ext.zeros((n_lde,), dev),
+                                  n_lde)
+        quotient = ext.add(quotient, ext.mul_base(ce_comb, inv_zh))
     return quotient_tail(quotient, n, num_quotient_chunks(air), rate, SHIFT)
 
 
@@ -268,9 +497,8 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
           challenger: Challenger | None = None, timer=None) -> StarkProof:
     """trace: (num_cols, N) base field; publics: list of scalar Fp, on the
     trace's device. ``timer(phase)``, if given, is called as each phase
-    ends (phase names: lde, commit, quotient, openings, deep, fri,
-    queries)."""
-    require_no_aux(air)
+    ends (phase names: lde, commit, aux when the AIR has lookups or a RAM,
+    quotient, openings, deep, fri, queries)."""
     mark = timer or (lambda phase: None)
     dev = trace.device
     if challenger is None:
@@ -303,11 +531,30 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
     challenger.observe_digests(trace_tree.cap)
     mark("commit")
 
+    # -- LogUp/RAM aux phase: γ (and δ for a RAM) squeezed after the trace
+    # commitment, the aux trace committed before α -------------------------
+    lk_cols = air.lookup_range_columns()
+    has_ram = air.ram_multiset() is not None
+    has_aux = len(lk_cols) > 0 or has_ram
+    aux_tree = aux_trace = aux_lde = gamma = delta_r = None
+    n_aux = 0
+    if has_aux:
+        gamma = _pick_ext(challenger.squeeze_ext(1), 0)
+        if has_ram:
+            delta_r = _pick_ext(challenger.squeeze_ext(1), 0)
+        aux_trace = _build_aux(air, trace, lk_cols, gamma, delta_r, n, cfp)
+        n_aux = aux_trace.shape[0]
+        aux_lde = pntt.coset_lde(aux_trace, rate)
+        aux_tree = merkle.build_cols(aux_lde, cap_height=config.cap_height)
+        challenger.observe_digests(aux_tree.cap)
+        mark("aux")
+
     alpha = _pick_ext(challenger.squeeze_ext(1), 0)
 
     # -- 3/4: constraints + quotient ---------------------------------------
     quot_cols, chunk_evals_lde, chunk_evals_sub = quotient_phase(
-        air, log_n, rate, trace_lde, c_lde, publics, alpha)
+        air, log_n, rate, trace_lde, c_lde, publics, alpha, gamma, delta_r,
+        aux_lde)
     n_chunks = num_quotient_chunks(air)
     quot_tree = merkle.build_cols(quot_cols, cap_height=config.cap_height)
     challenger.observe_digests(quot_tree.cap)
@@ -316,34 +563,37 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
     zeta = _pick_ext(challenger.squeeze_ext(1), 0)
 
     # -- 5: openings at ζ and g·ζ: one batched barycentric evaluation for
-    # the trace, constant and quotient-chunk components ---------------------
+    # the trace, aux, constant and quotient-chunk components ----------------
     g_zeta = ext.mul_base(zeta, gl.full((), g_dom, dev))
-    const_part = [cfp] if has_consts else []
+    committed = ([trace] + ([aux_trace] if has_aux else [])
+                 + ([cfp] if has_consts else []))
     chunk_sub = [c[j][None, :] for c in chunk_evals_sub for j in (0, 1)]
-    opened = pdom.barycentric_eval(torch.cat([trace] + const_part + chunk_sub),
+    opened = pdom.barycentric_eval(torch.cat(committed + chunk_sub),
                                    zeta, log_n)
+    opened_g = pdom.barycentric_eval(torch.cat(committed), g_zeta, log_n)
+    k_aux, k_const = num_cols, num_cols + n_aux
+    k_quot = k_const + n_consts
     trace_zeta = _slice_ext(opened, 0, num_cols)
-    const_zeta = (_slice_ext(opened, num_cols, num_cols + n_consts)
-                  if has_consts else None)
-    opened_g = pdom.barycentric_eval(torch.cat([trace] + const_part),
-                                     g_zeta, log_n)
     trace_gzeta = _slice_ext(opened_g, 0, num_cols)
-    const_gzeta = (_slice_ext(opened_g, num_cols, num_cols + n_consts)
-                   if has_consts else None)
+    aux_zeta = _slice_ext(opened, k_aux, k_const) if has_aux else None
+    aux_gzeta = _slice_ext(opened_g, k_aux, k_const) if has_aux else None
+    const_zeta = _slice_ext(opened, k_const, k_quot) if has_consts else None
+    const_gzeta = _slice_ext(opened_g, k_const, k_quot) if has_consts else None
 
     # recombine chunk components: value = re_v + u*im_v, u^2 = W
-    qv = []
-    for i in range(n_chunks):
-        a, b = _pick_ext(opened, num_cols + n_consts + 2 * i)
-        c, d = _pick_ext(opened, num_cols + n_consts + 2 * i + 1)
-        qv.append((gl.add(a, gl.mul_scalar(d, ext.W)), gl.add(b, c)))
-    quotient_zeta = _stack_ext(qv)
+    quotient_zeta = _stack_ext(
+        [_recombine_u(_pick_ext(opened, k_quot + 2 * i),
+                      _pick_ext(opened, k_quot + 2 * i + 1))
+         for i in range(n_chunks)])
 
     def obs_ext(v: ext.Fp2):
         challenger.observe(torch.cat([v[0].reshape(-1), v[1].reshape(-1)]))
 
     obs_ext(trace_zeta)
     obs_ext(trace_gzeta)
+    if has_aux:
+        obs_ext(aux_zeta)
+        obs_ext(aux_gzeta)
     if has_consts:
         obs_ext(const_zeta)
         obs_ext(const_gzeta)
@@ -354,9 +604,10 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
 
     # -- DEEP composition codeword -------------------------------------------
     ch_stack = _stack_ext(chunk_evals_lde)
-    F = _deep_phase_raw(log_n, rate, trace_lde, c_lde, ch_stack,
-                        trace_zeta, trace_gzeta, const_zeta, const_gzeta,
-                        quotient_zeta, zeta, g_zeta, beta)
+    F = _deep_phase_raw(log_n, rate, trace_lde, aux_lde, c_lde, ch_stack,
+                        trace_zeta, trace_gzeta, aux_zeta, aux_gzeta,
+                        const_zeta, const_gzeta, quotient_zeta, zeta, g_zeta,
+                        beta)
     mark("deep")
 
     # -- 6: FRI ------------------------------------------------------------
@@ -366,13 +617,11 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
     # -- 7: openings at query indices ---------------------------------------
     idx_a = indices
     idx_b = indices + n_lde // 2
-    (tra, tpa), (trb, tpb), (qra, qpa), (qrb, qpb), const_opens = \
+    (tra, tpa), (trb, tpb), (qra, qpa), (qrb, qpb), aux_opens, const_opens = \
         _open_queries_raw(trace_tree, trace_lde, quot_tree, quot_cols,
-                          vk_tree, c_lde, idx_a, idx_b)
-    if has_consts:
-        (cra, cpa), (crb, cpb) = const_opens
-    else:
-        cra = crb = cpa = cpb = None
+                          aux_tree, aux_lde, vk_tree, c_lde, idx_a, idx_b)
+    (ara, apa), (arb, apb) = aux_opens or ((None, None), (None, None))
+    (cra, cpa), (crb, cpb) = const_opens or ((None, None), (None, None))
     mark("queries")
 
     return StarkProof(
@@ -383,21 +632,27 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
         trace_paths_a=tpa, trace_paths_b=tpb,
         quot_rows_a=qra, quot_rows_b=qrb,
         quot_paths_a=qpa, quot_paths_b=qpb,
+        aux_cap=aux_tree.cap if has_aux else None,
+        aux_zeta=aux_zeta, aux_gzeta=aux_gzeta,
+        aux_rows_a=ara, aux_rows_b=arb,
+        aux_paths_a=apa, aux_paths_b=apb,
         const_zeta=const_zeta, const_gzeta=const_gzeta,
         const_rows_a=cra, const_rows_b=crb,
         const_paths_a=cpa, const_paths_b=cpb,
     )
 
 
-def _deep_phase_raw(log_n, rate, trace_lde, const_lde, ch_stack,
-                    trace_zeta, trace_gzeta, const_zeta, const_gzeta,
-                    quotient_zeta, zeta, g_zeta, beta):
+def _deep_phase_raw(log_n, rate, trace_lde, aux_lde, const_lde, ch_stack,
+                    trace_zeta, trace_gzeta, aux_zeta, aux_gzeta,
+                    const_zeta, const_gzeta, quotient_zeta, zeta, g_zeta, beta):
     """DEEP composition: β-batched deviation quotients of every opening
     group into one GF(p^2) codeword. β-power term order (mirrored by the
-    verifier): trace ζ | trace gζ | const ζ | const gζ | quotient."""
+    verifier): trace ζ | trace gζ | aux ζ | aux gζ | const ζ | const gζ |
+    quotient."""
     n_lde = 1 << (log_n + rate)
     dev = trace_lde.device
     num_cols = trace_lde.shape[0]
+    n_aux = aux_lde.shape[0] if aux_lde is not None else 0
     n_consts = const_lde.shape[0] if const_lde is not None else 0
     n_chunks = ch_stack[0].shape[0]
 
@@ -405,7 +660,7 @@ def _deep_phase_raw(log_n, rate, trace_lde, const_lde, ch_stack,
     inv_xz = ext.inv(ext.sub(xe, zeta))
     inv_xgz = ext.inv(ext.sub(xe, g_zeta))
 
-    n_terms = 2 * num_cols + 2 * n_consts + n_chunks
+    n_terms = 2 * num_cols + 2 * n_aux + 2 * n_consts + n_chunks
     betas = _alpha_power_array(beta, n_terms)
 
     def block(F, lde, z_open, gz_open, k0, ncol):
@@ -421,6 +676,9 @@ def _deep_phase_raw(log_n, rate, trace_lde, const_lde, ch_stack,
     F = block(ext.zeros((n_lde,), dev), trace_lde, trace_zeta, trace_gzeta,
               0, num_cols)
     kbase = 2 * num_cols
+    if aux_lde is not None:
+        F = block(F, aux_lde, aux_zeta, aux_gzeta, kbase, n_aux)
+        kbase += 2 * n_aux
     if const_lde is not None:
         F = block(F, const_lde, const_zeta, const_gzeta, kbase, n_consts)
         kbase += 2 * n_consts
@@ -430,7 +688,7 @@ def _deep_phase_raw(log_n, rate, trace_lde, const_lde, ch_stack,
 
 
 def _open_queries_raw(trace_tree, trace_cols, quot_tree, quot_cols,
-                      vk_tree, vk_cols, idx_a, idx_b):
+                      aux_tree, aux_cols, vk_tree, vk_cols, idx_a, idx_b):
     """Open every committed tree at both query-index halves. Committed
     matrices are column-major (w, n_lde): query rows are gathered."""
     def open_rows(tree, cols, idx):
@@ -440,8 +698,11 @@ def _open_queries_raw(trace_tree, trace_cols, quot_tree, quot_cols,
            open_rows(trace_tree, trace_cols, idx_b),
            open_rows(quot_tree, quot_cols, idx_a),
            open_rows(quot_tree, quot_cols, idx_b))
-    consts = None
+    aux = consts = None
+    if aux_tree is not None:
+        aux = (open_rows(aux_tree, aux_cols, idx_a),
+               open_rows(aux_tree, aux_cols, idx_b))
     if vk_tree is not None:
         consts = (open_rows(vk_tree, vk_cols, idx_a),
                   open_rows(vk_tree, vk_cols, idx_b))
-    return out + (consts,)
+    return out + (aux, consts)

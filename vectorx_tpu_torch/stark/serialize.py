@@ -96,6 +96,8 @@ def empty_proof_like_shapes(air, config, log_n: int):
         pow_nonce=fp())
     n_consts = np.asarray(air.constant_columns(1 << log_n)).shape[0]
     has_consts = n_consts > 0
+    n_aux = prover.total_aux_cols(air)
+    has_aux = n_aux > 0
     return prover.StarkProof(
         trace_cap=fp(cap, 4), quotient_cap=fp(cap, 4),
         trace_zeta=fp2(C), trace_gzeta=fp2(C), quotient_zeta=fp2(chunks),
@@ -104,6 +106,13 @@ def empty_proof_like_shapes(air, config, log_n: int):
         trace_paths_a=fp(q, depth, 4), trace_paths_b=fp(q, depth, 4),
         quot_rows_a=fp(q, 2 * chunks), quot_rows_b=fp(q, 2 * chunks),
         quot_paths_a=fp(q, depth, 4), quot_paths_b=fp(q, depth, 4),
+        aux_cap=fp(cap, 4) if has_aux else None,
+        aux_zeta=fp2(n_aux) if has_aux else None,
+        aux_gzeta=fp2(n_aux) if has_aux else None,
+        aux_rows_a=fp(q, n_aux) if has_aux else None,
+        aux_rows_b=fp(q, n_aux) if has_aux else None,
+        aux_paths_a=fp(q, depth, 4) if has_aux else None,
+        aux_paths_b=fp(q, depth, 4) if has_aux else None,
         const_zeta=fp2(n_consts) if has_consts else None,
         const_gzeta=fp2(n_consts) if has_consts else None,
         const_rows_a=fp(q, n_consts) if has_consts else None,
