@@ -13,8 +13,11 @@ Phases, a few lines each; any failure raises (non-zero exit, no final line):
                 of 1..84; after the main paths also every (length, flush,
                 squeeze) the transcripts of those runs gave it;
                 sponge_rows for widths 4..987 at 16384 and 28 rows, column-
-                and row-major, and at the statements' shapes (up to
-                (314, 524288) column-major) on a seeded sample of rows.
+                and row-major; after the main paths also at every shape and
+                memory layout those runs gave it (up to (314, 524288) and
+                (3336, 32768) column-major), all rows up to 4096 and a
+                seeded sample of rows above, the statements' commits timed
+                beside their bounds.
                 Then times by CUDA events, each beside its bound, and the
                 measured crossover of permute's two routes
   4. small    — HeaderAir(max_chunks=2) proved on the card and on the CPU
@@ -27,18 +30,35 @@ Phases, a few lines each; any failure raises (non-zero exit, no final line):
                 three warm proves with a per-phase split, verify on the
                 card, a tampered proof rejected; kernel launches per entry
                 for one warm prove and one verify
-  7. statement — the hash statements of the header_range bundle at full
-                width (rate 4, 42 queries, pow 16): MerkleSha256Air over 256
-                leaves (65536 x 368), ChainedSha256Air(300) (131072 x 314)
-                and Sha512ChallengeAir of 32 lanes (8192 x 685 + 82 aux
-                columns). For each: witness seconds, public output against
-                hashlib, one cold and one warm prove with the per-phase
-                split, peak device memory, verify, a tampered proof
-                rejected, kernel launches (counted for each proof alone)
-Then one JSON line of the kernels, the card's name and power limit, and
-the result line {"ok": true, "device": {...}}.
+  7. statement — the sub-proofs of the header_range bundle at full width
+                (rate 4, 42 queries, pow 16): MerkleSha256Air over 256
+                leaves (65536 x 368), ChainedSha256Air(300) (131072 x 314),
+                Sha512ChallengeAir of 32 lanes (8192 x 685 + 82 aux
+                columns) and the Ed25519VerifyAir shard of 32 signed lanes
+                (B = 13: 8192 x 3336 + 3188 aux columns). For each: witness
+                seconds, public output against hashlib, one cold and one
+                warm prove with the per-phase split, peak device memory,
+                verify, a tampered proof rejected, kernel launches
+  8. bundle-header-range — prove_header_range and verify_header_range at
+                production width: 4 chained 1990-byte headers
+                (HeaderAir(16)), 256-leaf range trees, the 300-key chain,
+                one Ed25519 and one SHA-512 shard of 32 signers; outputs
+                against hashlib, forged claims refused, a serialization
+                round trip verified again; seconds by kind of sub-proof
+  9. bundle-rotate — prove_rotate and verify_rotate: an epoch-end header
+                scheduling 300 new keys (RotateHeaderAir(128), 16384 x
+                803), the two 300-key chains, 32 signers; the same checks
+The main paths (6-9) each run with the launch counts set to 0 just before
+and read just after. Then the kernels at the main paths' shapes (above),
+and
+ 10. ed25519-small — Ed25519VerifyAir(B=8), one signed lane, proved on the
+                card and, in a process of its own started before those
+                checks, on the CPU: identical payloads.
+The signatures come from an RFC 8032 signer on Python ints in this file
+(ed25519_sign), so no signing library is needed. Then one JSON line of the kernels, the total seconds, the card's name and
+power limit, and the result line {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --profile [header|merkle|chain|sha512]
+    python3 chip_smoke.py --profile [header|merkle|chain|sha512|ed25519]
 
 runs phases 1 and 2 and then, in place of the others, one warm prove and one
 verify of the named proof (header when none is named) under torch.profiler
@@ -51,6 +71,8 @@ from __future__ import annotations
 import copy
 import hashlib
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -60,17 +82,21 @@ import torch
 
 from vectorx_tpu_torch import default_device
 from vectorx_tpu_torch.circuits import commitments, consts, scale
-from vectorx_tpu_torch.circuits.ed25519 import L_ORDER
+from vectorx_tpu_torch.circuits.ed25519 import D_CONST, L_ORDER, _BX, _BY
+from vectorx_tpu_torch.circuits.ed25519 import P as ED_P
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.hashes import poseidon as ps
 from vectorx_tpu_torch.ops import poseidon_cuda as pc
 from vectorx_tpu_torch.stark import air_header as ah
-from vectorx_tpu_torch.stark import fri, prover, serialize, verifier
+from vectorx_tpu_torch.stark import (fri, prover, serialize, statements,
+                                     verifier)
 from vectorx_tpu_torch.stark.air import Air
-from vectorx_tpu_torch.stark.air_ed25519 import dummy_sig
+from vectorx_tpu_torch.stark.air_ed25519 import (Ed25519VerifyAir,
+                                                 compress_host, dummy_sig)
 from vectorx_tpu_torch.stark.air_sha256_chain import ChainedSha256Air
 from vectorx_tpu_torch.stark.air_sha256_merkle import MerkleSha256Air
 from vectorx_tpu_torch.stark.air_sha512 import Sha512ChallengeAir
+from vectorx_tpu_torch.stark.ed25519_prove import sigs_from_justification
 
 HEADER_CHUNKS = 16
 HEADER_BYTES = 1990
@@ -88,15 +114,20 @@ CHAIN_TAILS = (0, 1, 7)
 SQUEEZES = (1, 2, 8, 9, 28, 42, 84)   # 28 and 42: the query indices
 SPONGE_WIDTHS = (4, 8, 9, 135, 799, 987)   # FRI leaf ... trace ... trace+VK
 SPONGE_ROWS = (16384, 28)                  # the LDE domain, the query rows
-# (width, rows) of the column-major matrices the statement proofs commit:
-# trace, aux, constants, quotient chunks; the kernel's digests are compared
-# on SAMPLE_ROWS seeded rows (first and last included), since the plain
-# sponge takes ~0.3 us a cell on the card. The same widths at the 84 query
-# rows of a 42-query verify are compared in full.
+# (width, rows) of column-major matrices the statement proofs commit:
+# trace, aux, constants; each is timed beside its bound after the main
+# paths, and compared at QUERY_ROWS contiguous rows of its width too.
+# Every shape the main paths give sponge_rows is bit-compared (recorded
+# during those runs, these included): all rows up to FULL_ROWS, else the
+# kernel's digests on SAMPLE_ROWS seeded rows (first and last included),
+# since the plain sponge takes ~0.3 us a cell on the card.
 SPONGE_LARGE = ((314, 524288), (10, 524288), (4, 524288), (368, 262144),
-                (48, 262144), (685, 32768), (82, 32768), (75, 32768))
+                (48, 262144), (685, 32768), (82, 32768), (75, 32768),
+                (3336, 32768), (3188, 32768), (30, 32768),  # Ed25519, B = 13
+                (803, 65536), (188, 65536))                 # RotateHeaderAir(128)
 SAMPLE_ROWS = 2048
-STATEMENT_QUERY_ROWS = 84
+FULL_ROWS = 4096
+QUERY_ROWS = 84                  # the opened rows of a 42-query verify
 CROSSOVER_SWEEP = (256, 1024, 2048, 4096, 8192, 16384, 32768)
 
 SOURCE = "vectorx_tpu_torch/csrc/poseidon.cu"
@@ -253,15 +284,23 @@ def record_duplex_shapes(seen: set) -> None:
 
 def check_duplex_shapes(rng, dev, shapes) -> None:
     """`duplex` against `duplex_plain` at every shape the main paths'
-    transcripts gave it, on seeded data biased to the carry boundaries."""
+    transcripts gave it, on seeded data biased to the carry boundaries.
+    Every absorb starts from one state on a prefix of one data vector, so a
+    single plain chain, read after each absorbed length, gives them all."""
     longest = max(m for m, _, _ in shapes)
     flat = torch.from_numpy(
         boundary_states(rng, longest // 12 + 2, gl.MODULUS).view(np.int64)
     ).to(dev).reshape(-1)
     state0 = flat[:12].contiguous()
+    after, state, done = {}, state0, 0
+    for k in sorted({m // ps.RATE for m, flush, _ in shapes if not flush}):
+        state, _ = ps.duplex_plain(state,
+                                   flat[12 + done * ps.RATE:12 + k * ps.RATE])
+        after[k], done = state, k
     for m, flush, n in sorted(shapes):
         data = flat[12:12 + m].contiguous()
-        want = ps.duplex_plain(state0, data, flush, n)
+        want = (ps.duplex_plain(state0, data, flush, n) if flush
+                else (after[m // ps.RATE], flat[:0]))
         got = pc.duplex(state0, data, flush, n)
         what = f"duplex len={m} flush={flush} squeeze={n}"
         must_equal("duplex", got[0], want[0], what + " state")
@@ -318,39 +357,88 @@ def check_sponge(rng, dev, p: int):
     return plain_s, trace_cols
 
 
-def check_sponge_large(dev, p: int) -> torch.Tensor:
-    """sponge_rows at the statements' shapes: the whole matrix through the
-    kernel, a seeded sample of its rows through the plain sponge; and the
-    same widths at the verifier's query rows in full. Returns the
-    (314, 524288) matrix for the timing."""
+def random_cols(gen, w: int, n: int) -> torch.Tensor:
+    """(w, n) canonical values on the generator's device (the hi word below
+    2^32 - 1)."""
+    return ((torch.randint(0, (1 << 32) - 1, (w, n), generator=gen,
+                           device=gen.device) << 32)
+            | torch.randint(0, 1 << 32, (w, n), generator=gen, device=gen.device))
+
+
+def record_sponge_shapes(seen: set) -> None:
+    """From here on note the (rows, width, strides, storage offset mod 4)
+    of every `sponge_rows` launch in `seen`; the launch and its count are
+    unchanged."""
+    launch = pc.sponge_rows
+
+    def sponge_rows(rows):
+        seen.add((*rows.shape, *rows.stride(), rows.storage_offset() % 4))
+        return launch(rows)
+
+    pc.sponge_rows = sponge_rows
+
+
+def check_sponge_shapes(dev, p: int, sm_mhz: float, seen):
+    """sponge_rows against hash_many_plain at every shape the main paths
+    gave it (`seen`) and at SPONGE_LARGE, each laid out in memory as it was
+    (strides and alignment), on seeded values with carry-boundary rows
+    first and last: all rows up to FULL_ROWS, a seeded sample of rows
+    above. The plain sponge costs a launch-bound permutation per 8 columns
+    whatever the rows, so it runs once per width over the rows of every
+    shape of that width. SPONGE_LARGE's kernel times beside their bounds.
+    Returns {"WxN": (ms, bound_ms, bound_by)}."""
     gen = torch.Generator(device=dev).manual_seed(13)
     rng = np.random.default_rng(13)
-    kept = None
-    for w, n in SPONGE_LARGE:
-        # hi word below 2^32 - 1, so every value is canonical
-        cols = ((torch.randint(0, (1 << 32) - 1, (w, n), generator=gen,
-                               device=dev) << 32)
-                | torch.randint(0, 1 << 32, (w, n), generator=gen, device=dev))
-        edge = torch.from_numpy(
-            boundary_states(rng, 4096, p).T.copy().view(np.int64)).to(dev)
-        cols[:min(w, 12), :4096] = edge[:min(w, 12)]
-        cols[:min(w, 12), -4096:] = edge[:min(w, 12)]
-        got = ps.hash_many(cols.t())
-        idx = torch.from_numpy(np.unique(np.concatenate([
-            [0, 1, 4095, 4096, n - 4097, n - 2, n - 1],
-            rng.integers(0, n, SAMPLE_ROWS)]))).to(dev)
-        want = ps.hash_many_plain(cols[:, idx].t().contiguous())
-        must_equal("sponge_rows", got[idx], want,
-                   f"sponge_rows {n}x{w} column-major, sampled rows")
-        few = cols[:, :STATEMENT_QUERY_ROWS].t().contiguous()      # (84, w)
-        want = ps.hash_many_plain(few)
-        must_equal("sponge_rows", ps.hash_many(few), want, f"sponge_rows 84x{w}")
-        must_equal("sponge_rows", pc._sponge_rows(few, False), want,
-                   f"sponge_rows 84x{w} thread route")
-        if kept is None:
-            kept = cols
-        del cols, got
-    return kept
+    path = set(seen)                # the checks' own launches add to `seen`
+    named = {(n, w, 1, n, 0) for w, n in SPONGE_LARGE}
+    queries = {(QUERY_ROWS, w, w, 1, 0) for w, _ in SPONGE_LARGE}
+    shapes = sorted(path | named | queries)
+    times, by_width = {}, {}
+    for key in shapes:
+        n, w, s_n, s_w, offset = key
+        if n == 0 or w == 0:
+            continue
+        flat = random_cols(gen, 1, offset + 1 + (n - 1) * s_n + (w - 1) * s_w)[0]
+        rows = flat.as_strided((n, w), (s_n, s_w), offset)
+        edge, k = min(4096, n), min(w, 12)
+        ends = torch.from_numpy(boundary_states(rng, edge, p)[:, :k]
+                                .copy().view(np.int64)).to(dev)
+        rows[:edge, :k] = ends
+        rows[n - edge:, :k] = ends
+        got = pc.sponge_rows(rows)
+        if n <= FULL_ROWS:
+            idx = torch.arange(n, device=dev)
+        else:
+            idx = torch.from_numpy(np.unique(np.concatenate([
+                [0, 1, edge - 1, edge, n - edge - 1, n - 2, n - 1],
+                rng.integers(0, n, SAMPLE_ROWS)]))).to(dev)
+        by_width.setdefault(w, []).append((key, rows[idx].contiguous(),
+                                           got[idx]))
+        if key in named:
+            ms = event_ms(lambda: pc.sponge_rows(rows), 3)
+            b_ms, b_by = bound_ms(n * -(-w // 8), (n * w + n * 4) * 8, sm_mhz)
+            times[f"{w}x{n}"] = (ms, b_ms, b_by)
+            log("poseidon-sponge-shape", shape=f"{w}x{n} column-major",
+                ms=f"{ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                share_of_bound=f"{b_ms / ms:.3f}")
+        del flat, rows, got
+    for w, items in sorted(by_width.items()):
+        want = ps.hash_many_plain(torch.cat([x for _, x, _ in items]))
+        start = 0
+        for (n, _, s_n, s_w, offset), x, got in items:
+            must_equal("sponge_rows", got, want[start:start + len(x)],
+                       f"sponge_rows {n}x{w} strides ({s_n}, {s_w}) "
+                       f"offset {offset}")
+            start += len(x)
+    log("poseidon-sponge-path", bit_equal=True, shapes=len(shapes),
+        recorded_on_paths=len(path),
+        named_seen_on_paths=f"{len(named & path)}/{len(named)}",
+        widths=len(by_width),
+        rows_x_width="|".join(sorted({f"{n}x{w}" for n, w, *_ in path},
+                                     key=lambda t: tuple(map(int, t.split("x"))))),
+        full_rows_up_to=FULL_ROWS, sampled_rows=SAMPLE_ROWS,
+        max_abs_err=max_abs_err["sponge_rows"])
+    return times
 
 
 def phase_poseidon(rng, dev, sm_mhz: float):
@@ -363,7 +451,8 @@ def phase_poseidon(rng, dev, sm_mhz: float):
     check_permute(states, states_np)
     chain_plain_s = check_duplex(states)
     sponge_plain_s, trace_cols = check_sponge(rng, dev, p)
-    big_cols = check_sponge_large(dev, p)
+    big_cols = random_cols(torch.Generator(device=dev).manual_seed(13),
+                           *SPONGE_LARGE[0])
     log("poseidon", bit_equal="permute|duplex|sponge_rows",
         permute_shapes="|".join("x".join(map(str, s)) for s in PATH_SHAPES),
         permute_ints_rows=512, chains="|".join(map(str, CHAIN_CHUNKS)),
@@ -371,8 +460,6 @@ def phase_poseidon(rng, dev, sm_mhz: float):
         squeezes="|".join(map(str, SQUEEZES)),
         sponge_widths="|".join(map(str, SPONGE_WIDTHS)),
         sponge_rows="|".join(map(str, SPONGE_ROWS)),
-        sponge_large="|".join(f"{w}x{n}" for w, n in SPONGE_LARGE),
-        sampled_rows=SAMPLE_ROWS,
         max_abs_err=max(max_abs_err.values()))
 
     # -- permute -----------------------------------------------------------
@@ -468,10 +555,73 @@ def phase_poseidon(rng, dev, sm_mhz: float):
     return {"permute": permute, "duplex": duplex, "sponge_rows": sponge}
 
 
-def make_header(rng, bn: int, size: int) -> bytes:
+# -- an RFC 8032 Ed25519 signer on Python ints (test support) ----------------
+# The bundles need valid signatures; this signer needs nothing beyond
+# hashlib. Points are extended twisted-Edwards coordinates (X, Y, Z, T),
+# a = -1, with the unified add-2008-hwcd-3 formulas.
+
+_ED_BASE = (_BX, _BY, 1, _BX * _BY % ED_P)
+_ED_ID = (0, 1, 1, 0)
+
+
+def _ed_add(p1, p2):
+    x1, y1, z1, t1 = p1
+    x2, y2, z2, t2 = p2
+    a = (y1 - x1) * (y2 - x2) % ED_P
+    b = (y1 + x1) * (y2 + x2) % ED_P
+    c = 2 * D_CONST * t1 * t2 % ED_P
+    d = 2 * z1 * z2 % ED_P
+    e, f, g, h = b - a, d - c, d + c, b + a
+    return e * f % ED_P, g * h % ED_P, f * g % ED_P, e * h % ED_P
+
+
+def _ed_mul(k: int, pt):
+    acc = _ED_ID
+    while k:
+        if k & 1:
+            acc = _ed_add(acc, pt)
+        pt = _ed_add(pt, pt)
+        k >>= 1
+    return acc
+
+
+def _ed_encode(pt) -> bytes:
+    x, y, z, _ = pt
+    zi = pow(z, ED_P - 2, ED_P)
+    return compress_host(x * zi % ED_P, y * zi % ED_P)
+
+
+def _sha512_int(*parts: bytes) -> int:
+    return int.from_bytes(hashlib.sha512(b"".join(parts)).digest(), "little")
+
+
+def _ed_secret(seed: bytes):
+    """-> (clamped secret scalar, nonce prefix) of a 32-byte seed."""
+    digest = hashlib.sha512(seed).digest()
+    a = int.from_bytes(digest[:32], "little")
+    return (a & ((1 << 254) - 8)) | (1 << 254), digest[32:]
+
+
+def ed25519_public_key(seed: bytes) -> bytes:
+    """The 32-byte public key of a 32-byte secret seed (RFC 8032 5.1.5)."""
+    return _ed_encode(_ed_mul(_ed_secret(seed)[0], _ED_BASE))
+
+
+def ed25519_sign(seed: bytes, msg: bytes):
+    """-> (public key, 64-byte signature R | S) of `msg` (RFC 8032 5.1.6)."""
+    a, prefix = _ed_secret(seed)
+    pub = _ed_encode(_ed_mul(a, _ED_BASE))
+    r = _sha512_int(prefix, msg) % L_ORDER
+    r_enc = _ed_encode(_ed_mul(r, _ED_BASE))
+    k = _sha512_int(r_enc, pub, msg) % L_ORDER
+    return pub, r_enc + ((r + k * a) % L_ORDER).to_bytes(32, "little")
+
+
+def make_header(rng, bn: int, size: int, parent: bytes | None = None) -> bytes:
     """A random SCALE header: parent | compact(bn) | body | data root
-    (the bench's header_proof generator)."""
-    parent = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+    (the bench's header_proof generator); a random parent unless named."""
+    if parent is None:
+        parent = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
     body = parent + scale.encode_compact_u32(bn)
     body += bytes(rng.integers(0, 256, size - len(body) - 32, dtype=np.uint8))
     return body + bytes(rng.integers(0, 256, 32, dtype=np.uint8))
@@ -660,7 +810,9 @@ def phase_aux_small():
 STATEMENT_CFG = prover.StarkConfig(rate_bits=2, num_queries=42,
                                    final_poly_len=8,
                                    pow_bits=prover.PRODUCTION_POW_BITS)
-STATEMENTS = ("merkle", "chain", "sha512")
+STATEMENTS = ("merkle", "chain", "sha512", "ed25519")
+ED_B = 13                        # the production shard: 8192 rows, 32 lanes
+ED_LANES = 1 << (ED_B - 8)
 
 
 def _random_bytes32(rng, count: int):
@@ -673,6 +825,27 @@ def _be_words(raw: bytes):
 
 def _digest(words) -> bytes:
     return b"".join(int(w).to_bytes(4, "big") for w in words)
+
+
+def precommit(rng) -> bytes:
+    """A seeded 53-byte GRANDPA precommit message."""
+    return scale.encode_precommit_bytes(
+        bytes(rng.integers(0, 256, 32, dtype=np.uint8)),
+        int(rng.integers(1, 1 << 32)), int(rng.integers(1, 1 << 16)),
+        int(rng.integers(1, 1 << 16)))
+
+
+def signed_lanes(rng, count: int, message: bytes):
+    """-> (public keys, signatures, (A, R, s, h) lanes) of `count` seeded
+    keys, every one signing `message`."""
+    pubs, sigs = [], []
+    for _ in range(count):
+        pub, sig = ed25519_sign(bytes(rng.integers(0, 256, 32, dtype=np.uint8)),
+                                message)
+        pubs.append(pub)
+        sigs.append(sig)
+    return pubs, sigs, sigs_from_justification(pubs, sigs, [True] * count,
+                                               message)
 
 
 def statement_case(name: str):
@@ -716,6 +889,17 @@ def statement_case(name: str):
         if publics[0] != 32:
             raise AssertionError("Sha512ChallengeAir lane count")
         field = "aux_rows_a"
+    elif name == "ed25519":
+        # one production shard: 32 lanes signed by 32 seeded keys over a
+        # seeded precommit (signing is not witness time)
+        message = precommit(np.random.default_rng(24))
+        lanes = signed_lanes(np.random.default_rng(25), ED_LANES, message)[2]
+        t0 = time.perf_counter()
+        air = Ed25519VerifyAir(lanes, B=ED_B)
+        trace, publics = air.make_trace_vec()  # checks [s]B == R + [h]A
+        if publics != air.publics_list() or publics[0] != ED_LANES:
+            raise AssertionError("Ed25519VerifyAir publics")
+        field = "aux_rows_a"
     else:
         raise SystemExit(f"chip_smoke: unknown statement {name!r}")
     witness_s = time.perf_counter() - t0
@@ -752,6 +936,211 @@ def phase_statement(name: str):
         **{f"{k}_per_warm_prove": v for k, v in per_prove.items()},
         **{f"{k}_per_verify": v for k, v in per_verify.items()})
     del air, proof, case        # with the air goes its cached constant LDE
+    torch.cuda.empty_cache()
+
+
+def ed25519_small_payload(dev=None):
+    """-> (payload, prove seconds) of Ed25519VerifyAir(B=8) with one signed
+    lane, proved on `dev` (the card when None)."""
+    message = precommit(np.random.default_rng(26))
+    lanes = signed_lanes(np.random.default_rng(27), 1, message)[2]
+    air = Ed25519VerifyAir(lanes, B=8)
+    cfg = prover.StarkConfig(rate_bits=1, num_queries=2, final_poly_len=4,
+                             pow_bits=8)
+    trace, publics = air.make_trace_vec(dev)
+    t0 = time.perf_counter()
+    proof = prover.prove(air, trace, [gl.to_fp(v, dev) for v in publics], cfg)
+    return serialize.payload(proof), time.perf_counter() - t0
+
+
+def ed25519_small_payload_on_cpu():
+    """ed25519_small_payload on the CPU with half its cores, for a process
+    of its own (its ~2 minutes then run beside the card's checks)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    return ed25519_small_payload("cpu")
+
+
+def phase_ed25519_small(on_cpu):
+    """Ed25519VerifyAir(B=8) proved on the card against `on_cpu`, the same
+    proof from the CPU path (what the CPU tests hold against the JAX
+    package): identical payloads."""
+    on_card, cuda_s = ed25519_small_payload()
+    if on_card != on_cpu[0]:
+        raise AssertionError("Ed25519VerifyAir(8) payloads differ between "
+                             "CUDA and CPU")
+    log("ed25519-small", air="Ed25519VerifyAir(B=8)", rows=256,
+        payload_bytes=len(on_card), identical=True, cuda_s=f"{cuda_s:.3f}",
+        cpu_s=f"{on_cpu[1]:.3f}")
+
+
+class KindTimes:
+    """While active: seconds and count of every prove and verify, by AIR
+    class (the bundles call prover.prove and verifier.verify per proof)."""
+
+    def __enter__(self):
+        self.seconds, self.count = {}, {}
+        self._saved = prover.prove, verifier.verify
+
+        def timed(fn, what):
+            def run(air, *args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(air, *args, **kwargs)
+                torch.cuda.synchronize()
+                key = f"{what}_{type(air).__name__}"
+                self.seconds[key] = (self.seconds.get(key, 0.0)
+                                     + time.perf_counter() - t0)
+                self.count[key] = self.count.get(key, 0) + 1
+                return out
+            return run
+
+        prover.prove = timed(self._saved[0], "prove")
+        verifier.verify = timed(self._saved[1], "verify")
+        return self
+
+    def __exit__(self, *exc):
+        prover.prove, verifier.verify = self._saved
+
+    def fields(self):
+        return {f"{k}_s": f"{v:.4f}x{self.count[k]}"
+                for k, v in sorted(self.seconds.items())}
+
+
+def must_refuse(what: str, fn) -> None:
+    try:
+        fn()
+    except statements.VerificationError:
+        return
+    raise AssertionError(f"the bundle verifier accepted {what}")
+
+
+BUNDLE_HEADERS = 4               # the depth cut of header_range (256 in use)
+
+
+def phase_bundle_header_range():
+    """One header_range bundle at production width: 4 chained 1990-byte
+    headers (HeaderAir(16)), 256-leaf range trees, the 300-key authority
+    chain, one Ed25519 shard and one SHA-512 shard of 32 signing lanes."""
+    cfg = STATEMENT_CFG
+    rng = np.random.default_rng(41)
+    trusted_block, set_id, round_ = 4000, 7, 2
+    trusted_hash = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+    headers, parent = [], trusted_hash
+    for i in range(BUNDLE_HEADERS):
+        headers.append(make_header(rng, trusted_block + 1 + i, HEADER_BYTES,
+                                   parent))
+        parent = hashlib.blake2b(headers[-1], digest_size=32).digest()
+    target_block = trusted_block + BUNDLE_HEADERS
+    message = scale.encode_precommit_bytes(parent, target_block, round_, set_id)
+    pubs, sigs, _ = signed_lanes(np.random.default_rng(42), ED_LANES, message)
+    set_hash = commitments.authority_set_hash(pubs)
+    tree = consts.HEADER_RANGE_TREE_SIZE_SMALL
+
+    def verify(bundle, target=target_block, set_hash=set_hash):
+        return statements.verify_header_range(
+            bundle, trusted_block, trusted_hash, set_id, set_hash, target, cfg)
+
+    with KindTimes() as kinds:
+        t0 = time.perf_counter()
+        bundle = statements.prove_header_range(
+            trusted_block, target_block, headers, pubs, sigs, set_id, round_,
+            cfg, tree_size=tree, max_chunks=HEADER_CHUNKS,
+            max_authorities=consts.MAX_AUTHORITY_SET_SIZE, ed_B=ED_B)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = verify(bundle)
+        verify_s = time.perf_counter() - t0
+    fields = [scale.decode_header_bytes(h) for h in headers]
+    want = (parent,) + tuple(commitments.range_commitments(
+        [f["state_root"] for f in fields], [f["data_root"] for f in fields],
+        tree))
+    if out != want:
+        raise AssertionError("verify_header_range outputs != hashlib's")
+    must_refuse("a wrong target block", lambda: verify(bundle, target_block + 1))
+    must_refuse("a wrong authority set",
+                lambda: verify(bundle, set_hash=hashlib.sha256(b"x").digest()))
+    blob = statements.serialize_header_range(bundle, cfg)
+    back, back_cfg = statements.deserialize_header_range(blob)
+    t0 = time.perf_counter()
+    if back_cfg != cfg or verify(back) != want:
+        raise AssertionError("the deserialized header_range bundle differs")
+    log("bundle-header-range", headers=BUNDLE_HEADERS,
+        header_bytes=HEADER_BYTES, tree_size=tree,
+        max_authorities=consts.MAX_AUTHORITY_SET_SIZE, signers=ED_LANES,
+        ed_B=ED_B, sig_shards=len(bundle.sig_proofs),
+        sha512_shards=len(bundle.sha512_proofs), outputs="hashlib",
+        prove_s=f"{prove_s:.4f}", verify_s=f"{verify_s:.4f}",
+        wrong_target_and_set_rejected=True, bundle_bytes=len(blob),
+        round_trip_verify_s=f"{time.perf_counter() - t0:.4f}")
+    log("bundle-header-range-kinds", **kinds.fields())
+    del bundle, back
+    torch.cuda.empty_cache()
+
+
+ROTATE_CHUNKS = 128              # a 300-key ScheduledChange: 12,004 bytes
+
+
+def epoch_end_header(rng, block_number: int, new_pubkeys) -> bytes:
+    """A SCALE header whose digest holds one GRANDPA ScheduledChange log."""
+    parent, state_root, extrinsics_root, data_root = (
+        bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(4))
+    records = b"".join(pk + b"\x01" + bytes(7) for pk in new_pubkeys)
+    change = (b"\x01" + scale.encode_compact_u32(len(new_pubkeys)) + records
+              + bytes(4))
+    item = b"\x04" + b"FRNK" + scale.encode_compact_u32(len(change)) + change
+    return (parent + scale.encode_compact_u32(block_number) + state_root
+            + extrinsics_root + b"\x04" + item + data_root)
+
+
+def phase_bundle_rotate():
+    """One rotate bundle at production width: an epoch-end header that
+    schedules 300 new keys (RotateHeaderAir(128)), the two 300-key chains,
+    one Ed25519 and one SHA-512 shard of 32 current signers."""
+    cfg = STATEMENT_CFG
+    rng = np.random.default_rng(51)
+    block, set_id, round_ = 9000, 8, 3
+    n_new = consts.MAX_AUTHORITY_SET_SIZE
+    new_pubs = [ed25519_public_key(bytes(rng.integers(0, 256, 32,
+                                                      dtype=np.uint8)))
+                for _ in range(n_new)]
+    header = epoch_end_header(rng, block, new_pubs)
+    message = scale.encode_precommit_bytes(
+        hashlib.blake2b(header, digest_size=32).digest(), block, round_, set_id)
+    pubs, sigs, _ = signed_lanes(np.random.default_rng(52), ED_LANES, message)
+    set_hash = commitments.authority_set_hash(pubs)
+
+    def verify(bundle, set_hash=set_hash):
+        return statements.verify_rotate(bundle, set_id, set_hash, cfg)
+
+    with KindTimes() as kinds:
+        t0 = time.perf_counter()
+        bundle = statements.prove_rotate(
+            block, header, pubs, sigs, set_id, round_, cfg,
+            max_chunks=ROTATE_CHUNKS, max_authorities=n_new, ed_B=ED_B)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = verify(bundle)
+        verify_s = time.perf_counter() - t0
+    want = commitments.authority_set_hash(new_pubs)
+    if out != want:
+        raise AssertionError("verify_rotate output != the new set's hash")
+    must_refuse("a wrong current set",
+                lambda: verify(bundle, hashlib.sha256(b"x").digest()))
+    blob = statements.serialize_rotate(bundle, cfg)
+    back, back_cfg = statements.deserialize_rotate(blob)
+    t0 = time.perf_counter()
+    if back_cfg != cfg or verify(back) != want:
+        raise AssertionError("the deserialized rotate bundle differs")
+    log("bundle-rotate", header_bytes=len(header),
+        window_bytes=len(bundle.window), new_keys=n_new, signers=ED_LANES,
+        max_chunks=ROTATE_CHUNKS, ed_B=ED_B, output="authority_set_hash",
+        prove_s=f"{prove_s:.4f}", verify_s=f"{verify_s:.4f}",
+        wrong_set_rejected=True, bundle_bytes=len(blob),
+        round_trip_verify_s=f"{time.perf_counter() - t0:.4f}")
+    log("bundle-rotate-kinds", **kinds.fields())
+    del bundle, back
     torch.cuda.empty_cache()
 
 
@@ -825,6 +1214,7 @@ def main() -> int:
     log("device", name=torch.cuda.get_device_name(0), smi=repr(smi),
         max_sm_mhz=sm_mhz, torch=torch.__version__, cuda=torch.version.cuda)
 
+    started = time.perf_counter()
     t0 = time.perf_counter()
     pc._load()
     log("build", seconds=f"{time.perf_counter() - t0:.2f}")
@@ -845,20 +1235,35 @@ def main() -> int:
     phase_aux_small()
 
     # the main paths, each proof with the counts set to 0 just before it
-    duplex_shapes = set()
+    duplex_shapes, sponge_shapes = set(), set()
     record_duplex_shapes(duplex_shapes)
+    record_sponge_shapes(sponge_shapes)
     by_path = {}
-    for path, run in [("slice", phase_slice)] + [
+    for path, run in ([("slice", phase_slice)] + [
             (name, lambda name=name: phase_statement(name))
-            for name in STATEMENTS]:
+            for name in STATEMENTS] + [
+            ("bundle-header-range", phase_bundle_header_range),
+            ("bundle-rotate", phase_bundle_rotate)]):
         pc.reset_launches()
         run()
         by_path[path] = launches = dict(pc.launches)
         log(f"{path}-launches-total", **launches, total=sum(launches.values()))
         if min(launches.values()) <= 0:
             raise AssertionError(f"the {path} path skipped a kernel: {launches}")
-    check_duplex_shapes(np.random.default_rng(17), dev, duplex_shapes)
+    # the kernels at the main paths' shapes, and the B = 8 Ed25519 proof on
+    # the card against the CPU's, which a process of its own proves
+    # meanwhile (the pool stops it on the way out)
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        on_cpu = pool.apply_async(ed25519_small_payload_on_cpu)
+        shape_times = check_sponge_shapes(dev, gl.MODULUS, sm_mhz,
+                                          sponge_shapes)
+        check_duplex_shapes(np.random.default_rng(17), dev, duplex_shapes)
+        phase_ed25519_small(on_cpu.get())
     stats["duplex"]["max_abs_err"] = max_abs_err["duplex"]
+    stats["sponge_rows"].update(
+        max_abs_err=max_abs_err["sponge_rows"],
+        ms_and_bound_ms_by_shape={k: [round(ms, 4), round(b, 4)]
+                                  for k, (ms, b, _) in shape_times.items()})
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
@@ -867,6 +1272,7 @@ def main() -> int:
                               for path, launches in by_path.items()},
          "library_ms": None, **stats[name]}
         for name in ("permute", "duplex", "sponge_rows")]}))
+    log("total", seconds=f"{time.perf_counter() - started:.1f}")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

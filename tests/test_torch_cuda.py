@@ -1,5 +1,7 @@
 """The port on the card: the CUDA Poseidon kernels (permute, duplex,
-sponge_rows) against their plain versions, and a prove through them.
+sponge_rows) against their plain versions, proves through them, and the
+production Ed25519 shard (B = 13, 32 signed lanes: the witness on the card
+equal to the CPU's, one proof verified and a tampered one rejected).
 
 Every test here is marked ``cuda`` and skips without a card (a CUDA kernel
 has no CPU mode). The file imports neither JAX nor the JAX package, so it
@@ -7,6 +9,10 @@ also runs where JAX is not installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -18,6 +24,7 @@ from vectorx_tpu_torch.hashes import poseidon as ps
 from vectorx_tpu_torch.ops import poseidon_cuda
 from vectorx_tpu_torch.stark import prover, serialize, verifier
 from vectorx_tpu_torch.stark.air import FibonacciAir
+from vectorx_tpu_torch.stark.air_ed25519 import Ed25519VerifyAir
 from vectorx_tpu_torch.stark.challenger import Challenger
 
 from oracle import P
@@ -101,7 +108,9 @@ def test_sponge_rows_matches_plain_on_card(card, width, n):
 
 @pytest.mark.parametrize("width,n", [(314, 524288), (368, 262144),
                                      (685, 32768), (82, 32768), (10, 524288),
-                                     (48, 262144), (75, 32768)])
+                                     (48, 262144), (75, 32768), (3336, 32768),
+                                     (3188, 32768), (30, 32768), (803, 65536),
+                                     (188, 65536)])
 def test_sponge_rows_at_statement_shapes_on_card(card, width, n):
     """The column-major matrices the statement proofs commit (trace, aux,
     constants): the whole matrix through the kernel, 1024 seeded rows (first
@@ -199,3 +208,58 @@ def test_fibonacci_proof_same_on_card_and_cpu(card):
     assert serialize.payload(on_card) == serialize.payload(on_cpu)
     assert verifier.verify(FibonacciAir(), on_card, [p.to(card) for p in pubs],
                            5, cfg)
+
+
+def _chip_smoke():
+    """chip_smoke.py, for its signer (RFC 8032 on Python ints)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def ed25519_shard():
+    """Ed25519VerifyAir(B=13) over 32 lanes signed by 32 seeded keys."""
+    smoke = _chip_smoke()
+    message = smoke.precommit(np.random.default_rng(24))
+    lanes = smoke.signed_lanes(np.random.default_rng(25), 32, message)[2]
+    return Ed25519VerifyAir(lanes, B=13), smoke.STATEMENT_CFG
+
+
+def test_ed25519_witness_same_on_card_and_cpu(card, ed25519_shard):
+    air = ed25519_shard[0]
+    on_card, publics = air.make_trace_vec(card)
+    on_cpu, cpu_publics = air.make_trace_vec("cpu")
+    assert on_card.is_cuda and on_card.shape == (3336, 8192)
+    assert torch.equal(on_card.cpu(), on_cpu) and publics == cpu_publics
+
+
+def test_ed25519_shard_proves_and_verifies_on_card(card, ed25519_shard):
+    air, cfg = ed25519_shard
+    trace, publics = air.make_trace_vec(card)
+    pubs = [gl.to_fp(p, card) for p in publics]
+    proof = prover.prove(air, trace, pubs, cfg)
+    assert prover.total_aux_cols(air) == 3188
+    assert verifier.verify(air, proof, pubs, 13, cfg)
+    bad = proof.aux_rows_a.clone()
+    bad[0, 0] ^= 1
+    assert not verifier.verify(air, dataclasses.replace(proof, aux_rows_a=bad),
+                               pubs, 13, cfg)
+
+
+def test_prove_sigs_and_verify_sigs_on_card(card, ed25519_shard):
+    """Two B = 8 shards of one lane each: proved on the card, verified, and
+    a shard with a wrong challenge rejected."""
+    from vectorx_tpu_torch.stark import ed25519_prove
+    cfg = prover.StarkConfig(rate_bits=1, num_queries=2, final_poly_len=4)
+    lanes = ed25519_shard[0].sigs[:2]
+    shards = ed25519_prove.prove_sigs(lanes, 8, cfg, device=card)
+    assert len(shards) == 2 and shards[0][1].trace_cap.is_cuda
+    assert ed25519_prove.verify_sigs(shards, cfg)
+    air, proof, publics = shards[1]
+    a, r, s, h = air.sigs[0]
+    forged = (Ed25519VerifyAir([(a, r, s, (h + 1) % (1 << 252))], B=8),
+              proof, publics)
+    assert not ed25519_prove.verify_sigs([shards[0], forged], cfg)

@@ -89,6 +89,19 @@ def test_inv_and_batch_inv():
     assert _jax_ints(jgl.inv(jgl.to_fp(a))) == want
 
 
+@pytest.mark.parametrize("shape", [(1,), (2,), (3,), (7,), (1000,), (3, 4, 5)])
+def test_inv_product_tree_edges(shape):
+    """The product-tree inverse at odd and even lengths and with leading
+    axes, zeros (inv(0) = 0), 1 and p - 1 among the values."""
+    n = int(np.prod(shape))
+    a = _values(11 + n, n)[:n]          # the edge values first
+    for i, v in zip(range(0, n, 3), (0, 1, P - 1, 0)):
+        a[i] = v
+    got = gl.inv(gl.to_fp(np.array(a, dtype=np.uint64).reshape(shape), "cpu"))
+    assert got.shape == shape
+    assert _ints(got.reshape(-1)) == [gl_inv(v) for v in a]
+
+
 @pytest.mark.parametrize("e", [0, 1, 7, 15, 16, 12345, P - 2])
 def test_pow_const(e):
     a = _values(5, 32)

@@ -1,7 +1,8 @@
 """Port vs reference: Poseidon tables, the plain permutation, the sponge.
 
-The port's plain torch rounds are held against vectorx_tpu's JAX
-permutation, its Pallas kernel in interpret mode and the exact-int oracle.
+The port's plain torch rounds and its CPU route (``permute`` on a CPU
+tensor: numpy rounds) are held against vectorx_tpu's JAX permutation, its
+Pallas kernel in interpret mode and the exact-int oracle.
 The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py).
 """
 
@@ -69,6 +70,7 @@ def test_plain_permute_matches_jax_and_oracle(n):
     want = np.asarray([jps.permute_ints([int(v) for v in row]) for row in s],
                       dtype=np.uint64)
     assert np.array_equal(got, want)
+    assert np.array_equal(gl.to_u64(ps.permute_plain(_port(s))), want)
     j = jps.permute(_jax(s))
     assert np.array_equal(got, _u64(*j))
 
@@ -89,6 +91,7 @@ def test_plain_permute_matches_pallas_interpret_ragged_batch():
     got = gl.to_u64(ps.permute(_port(s)))
     j = pp.permute(_jax(s), interpret=True)
     assert np.array_equal(got, _u64(*j))
+    assert np.array_equal(gl.to_u64(ps.permute_plain(_port(s))), got)
     for i in (0, 1, pp.TILE - 1, pp.TILE, n - 1):
         assert [int(v) for v in got[i]] == jps.permute_ints([int(v) for v in s[i]])
 

@@ -3,12 +3,15 @@
 - compact-u32 encode/decode (4 widths selected by the 2-bit mode);
 - header decode {parent_hash, block_number, state_root, data_root}: parent
   hash at [0, 32), the compact block number at 32, the state root right
-  after it, the data root in the last 32 bytes.
+  after it, the data root in the last 32 bytes;
+- the 53-byte GRANDPA precommit message the authorities sign.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
+
+from .consts import ENCODED_PRECOMMIT_LENGTH
 
 HASH_SIZE = 32
 MAX_COMPACT_UINT_BYTES = 5
@@ -51,3 +54,24 @@ def decode_header_bytes(header: bytes) -> dict:
     data_root = header[len(header) - DATA_ROOT_OFFSET_FROM_END:]
     return dict(parent_hash=parent_hash, block_number=block_number,
                 state_root=state_root, data_root=data_root)
+
+
+def decode_precommit_bytes(precommit: bytes) -> Tuple[bytes, int, int, int]:
+    """Exact 53-byte precommit decode -> (block_hash, block_nb, round,
+    set_id); the leading byte must be 1."""
+    assert len(precommit) == ENCODED_PRECOMMIT_LENGTH
+    assert precommit[0] == 1
+    block_hash = precommit[1:33]
+    block_number = int.from_bytes(precommit[33:37], "little")
+    round_ = int.from_bytes(precommit[37:45], "little")
+    authority_set_id = int.from_bytes(precommit[45:53], "little")
+    return block_hash, block_number, round_, authority_set_id
+
+
+def encode_precommit_bytes(block_hash: bytes, block_number: int, round_: int,
+                           authority_set_id: int) -> bytes:
+    """The signed GRANDPA precommit message: 1 | block hash | block number
+    (u32 LE) | round (u64 LE) | authority set id (u64 LE)."""
+    return (bytes([1]) + block_hash + block_number.to_bytes(4, "little")
+            + round_.to_bytes(8, "little")
+            + authority_set_id.to_bytes(8, "little"))

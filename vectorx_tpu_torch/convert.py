@@ -27,7 +27,9 @@ def fp_from_pairs(lo, hi, device=None) -> torch.Tensor:
     unless ``device`` names another)."""
     v = (np.asarray(lo, dtype=np.uint64)
          | (np.asarray(hi, dtype=np.uint64) << np.uint64(32)))
-    return torch.from_numpy(np.ascontiguousarray(v).view(np.int64)).to(
+    # ascontiguousarray makes a 0-d array 1-d: keep the leaf's own shape
+    return torch.from_numpy(
+        np.ascontiguousarray(v).view(np.int64).reshape(v.shape)).to(
         default_device(device))
 
 

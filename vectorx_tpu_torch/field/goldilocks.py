@@ -220,8 +220,30 @@ def pow_const(a: Fp, e: int) -> Fp:
 
 
 def inv(a: Fp) -> Fp:
-    """Multiplicative inverse via Fermat: a^(p-2). inv(0) = 0."""
-    return pow_const(a, MODULUS - 2)
+    """Multiplicative inverse, inv(0) = 0: the product tree of the
+    elements (a zero taken as 1), one Fermat power a^(p-2) at its root, and
+    the tree walked back down; three products an element, where a Fermat
+    power of each takes about 126."""
+    flat = a.reshape(-1)
+    if flat.numel() <= 1:
+        return pow_const(a, MODULUS - 2)
+    zero = flat == 0
+    x = torch.where(zero, torch.ones_like(flat), flat)
+    levels = []
+    while x.numel() > 1:
+        levels.append(x)
+        if x.numel() % 2:
+            x = torch.cat([x, torch.ones_like(x[:1])])
+        x = mul(x[0::2], x[1::2])
+    y = pow_const(x, MODULUS - 2)
+    for level in reversed(levels):
+        # 1/left = right/(left*right) and 1/right = left/(left*right)
+        n = level.numel()
+        if n % 2:
+            level = torch.cat([level, torch.ones_like(level[:1])])
+        y = torch.stack([mul(y, level[1::2]), mul(y, level[0::2])],
+                        dim=-1).reshape(-1)[:n]
+    return torch.where(zero, flat, y).reshape(a.shape)
 
 
 def batch_inv(a: Fp) -> Fp:

@@ -13,13 +13,18 @@ digests match it bit for bit:
 States are int64 tensors of shape (..., 12) (see field/goldilocks.py).
 ``permute``, ``duplex`` (a transcript's chain of absorbs and squeezes) and
 ``hash_many`` (leaf digests) launch the CUDA kernels (ops/poseidon_cuda.py)
-for every CUDA tensor and run their plain versions (``permute_plain``, the
-dense 30-round torch version, and the loops over it) for CPU tensors.
+for every CUDA tensor. Their plain versions in torch ops (``permute_plain``,
+the dense 30 rounds, and the loops over it) are what the kernels are held
+against on the card. CPU tensors take the host route: ``permute_np`` and
+``hash_many_np`` on numpy uint64 arrays, and ``duplex_ints`` on Python ints
+for the one state of a transcript; torch's per-op cost makes its rounds
+three to six times slower there.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 from functools import lru_cache
 from typing import List, Sequence, Tuple
 
@@ -227,6 +232,131 @@ def _np_fast_partial():
 
 
 # ---------------------------------------------------------------------------
+# Host route — numpy uint64 (n, 12) states, and Python ints for one state
+# ---------------------------------------------------------------------------
+
+_U32 = np.uint64(32)
+_M32 = np.uint64(0xFFFFFFFF)
+_EPS = np.uint64(gl.EPSILON)                  # 2^64 mod p
+_P_U = np.uint64(P)
+
+
+def _mul_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a * b (mod p) for any 64-bit a, b, as a 64-bit value that may be
+    >= p: the 128-bit product from 32-bit halves (its low word by the
+    wrapping product), then lo - hi_hi + hi_lo * EPS."""
+    a0, a1 = a & _M32, a >> _U32
+    b0, b1 = b & _M32, b >> _U32
+    lh, hl = a0 * b1, a1 * b0
+    mid = (lh & _M32) + (hl & _M32) + ((a0 * b0) >> _U32)
+    hi = a1 * b1 + (lh >> _U32) + (hl >> _U32) + (mid >> _U32)
+    lo = a * b
+    n3 = hi >> _U32
+    t0 = lo - n3
+    t0 -= (lo < n3) * _EPS                    # a borrow: -2^64 is -EPS
+    t = (hi & _M32) * _EPS
+    r = t0 + t
+    r += (r < t) * _EPS                       # a carry: +2^64 is +EPS
+    return r
+
+
+@lru_cache(maxsize=None)
+def _mds_f64() -> np.ndarray:
+    """M^T as float64: a sum of twelve products of 32-bit halves and
+    entries <= 2^16 stays below 2^52, so the float product is exact."""
+    return np.array(mds_matrix(), dtype=np.float64).T.copy()
+
+
+def _mds_np(s: np.ndarray) -> np.ndarray:
+    """(n, 12) any 64-bit values -> M s (canonical)."""
+    m = _mds_f64()
+    slo = ((s & _M32).astype(np.float64) @ m).astype(np.uint64)
+    shi = ((s >> _U32).astype(np.float64) @ m).astype(np.uint64)
+    lo = slo + (shi << _U32)                  # slo + shi * 2^32 = lo + k 2^64
+    t = ((shi >> _U32) + (lo < slo)) * _EPS
+    r = lo + t
+    r += (r < t) * _EPS
+    return np.where(r >= _P_U, r - _P_U, r)
+
+
+def _sbox_np(x: np.ndarray) -> np.ndarray:
+    x2 = _mul_np(x, x)
+    return _mul_np(_mul_np(x2, x2), _mul_np(x2, x))
+
+
+def permute_np(state: np.ndarray) -> np.ndarray:
+    """``permute_plain``'s function on (n, 12) numpy uint64 states: the
+    dense 30 rounds, each value kept below 2^64 and reduced canonically by
+    the MDS layer."""
+    rc, _ = _np_constants()
+    half_f = FULL_ROUNDS // 2
+    s = np.array(state, dtype=np.uint64)
+    for r in range(N_ROUNDS):
+        s += rc[r]
+        s += (s < rc[r]) * _EPS
+        if half_f <= r < half_f + PARTIAL_ROUNDS:
+            s[:, 0] = _sbox_np(s[:, 0])
+        else:
+            s = _sbox_np(s)
+        s = _mds_np(s)
+    return s
+
+
+def hash_many_np(rows: np.ndarray) -> np.ndarray:
+    """``hash_many_plain``'s function on an (n, w) numpy uint64 matrix ->
+    (n, 4) digests."""
+    n, w = rows.shape
+    state = np.zeros((n, WIDTH), dtype=np.uint64)
+    for i in range(0, w, RATE):
+        chunk = rows[:, i:i + RATE]
+        state[:, :chunk.shape[1]] = chunk
+        state[:, chunk.shape[1]:RATE] = 0
+        state = permute_np(state)
+    return state[:, :DIGEST_WIDTH]
+
+
+@lru_cache(maxsize=None)
+def _int_tables():
+    """The rounds in the kernel's form, as Python ints: the first full
+    rounds' constants, the partial rounds' (a_i, row_i, w_hat_i) of
+    ``fast_partial_ints``, D, the last full rounds' constants with L added,
+    and each MDS row as shifts."""
+    a, rows, whats, D, L = fast_partial_ints()
+    rc = round_constants()
+    half_f = FULL_ROUNDS // 2
+    last = [list(c) for c in rc[half_f + PARTIAL_ROUNDS:]]
+    last[0] = [(c + l) % P for c, l in zip(last[0], L)]
+    logs = [m.bit_length() - 1 for m in MDS_ROW]
+    shifts = [[logs[(j - i) % WIDTH] for j in range(WIDTH)]
+              for i in range(WIDTH)]
+    partial = [(a[i], rows[i][0], rows[i][1:], whats[i][1:])
+               for i in range(PARTIAL_ROUNDS)]
+    return rc[:half_f], partial, D, last, shifts
+
+
+def _permute_list(s: List[int]) -> List[int]:
+    """``permute_ints``'s function on 12 canonical ints, its partial rounds
+    in the sparse form (a tenth of the dense rounds' products)."""
+    first, partial, D, last, shifts = _int_tables()
+
+    def full_round(s, c):
+        t = [pow(x + k, ALPHA, P) for x, k in zip(s, c)]
+        return [sum([x << k for x, k in zip(t, sh)]) % P for sh in shifts]
+
+    for c in first:
+        s = full_round(s, c)
+    for a, r0, row, what in partial:
+        x0 = pow(s[0] + a, ALPHA, P)
+        tail = s[1:]
+        s = [(r0 * x0 + sum([u * v for u, v in zip(row, tail)])) % P] + [
+            (u * x0 + v) % P for u, v in zip(what, tail)]
+    s = [sum([u * v for u, v in zip(row, s)]) % P for row in D]
+    for c in last:
+        s = full_round(s, c)
+    return s
+
+
+# ---------------------------------------------------------------------------
 # Plain torch path — state is an int64 tensor of shape (..., 12)
 # ---------------------------------------------------------------------------
 
@@ -268,13 +398,14 @@ def permute_plain(state: gl.Fp) -> gl.Fp:
 
 def permute(state: gl.Fp) -> gl.Fp:
     """Poseidon permutation on (..., 12) states: the CUDA kernel for CUDA
-    tensors, the plain torch rounds for CPU tensors."""
+    tensors, ``permute_np`` for CPU tensors."""
     if state.is_cuda:
         from ..ops import poseidon_cuda
         return poseidon_cuda.permute(state.contiguous())
     if state.device.type != "cpu":
         raise NotImplementedError(f"no Poseidon path for {state.device}")
-    return permute_plain(state)
+    out = permute_np(gl.to_u64(state).reshape(-1, WIDTH))
+    return torch.from_numpy(out.view(np.int64)).reshape(state.shape)
 
 
 def hash_two_to_one(left: gl.Fp, right: gl.Fp) -> gl.Fp:
@@ -303,7 +434,7 @@ def hash_many(inputs: gl.Fp) -> gl.Fp:
     """Sponge over the last axis, (..., n) -> (..., 4): the fused
     ``sponge_rows`` kernel for CUDA tensors (a 2-D view is read through its
     strides, so the rows of a column-major matrix need no transpose),
-    ``hash_many_plain`` for CPU tensors."""
+    ``hash_many_np`` for CPU tensors."""
     if inputs.is_cuda:
         from ..ops import poseidon_cuda
         rows = inputs if inputs.dim() == 2 else inputs.reshape(
@@ -312,7 +443,10 @@ def hash_many(inputs: gl.Fp) -> gl.Fp:
             inputs.shape[:-1] + (DIGEST_WIDTH,))
     if inputs.device.type != "cpu":
         raise NotImplementedError(f"no Poseidon path for {inputs.device}")
-    return hash_many_plain(inputs)
+    out = hash_many_np(gl.to_u64(inputs).reshape(
+        math.prod(inputs.shape[:-1]), inputs.shape[-1]))
+    return torch.from_numpy(out.view(np.int64)).reshape(
+        inputs.shape[:-1] + (DIGEST_WIDTH,))
 
 
 def duplex_plain(state: gl.Fp, data: gl.Fp, flush: bool = False,
@@ -336,14 +470,36 @@ def duplex_plain(state: gl.Fp, data: gl.Fp, flush: bool = False,
     return state, torch.cat(outs, dim=-1)
 
 
+def duplex_ints(state: gl.Fp, data: gl.Fp, flush: bool = False,
+                n_squeeze: int = 0) -> Tuple[gl.Fp, gl.Fp]:
+    """``duplex_plain``'s function for one (12,) state, its permutations on
+    Python ints: a transcript's chain on the CPU, where torch's per-op cost
+    on 12 elements dominates the torch rounds."""
+    if state.shape != (WIDTH,) or data.dim() != 1:
+        raise ValueError(f"duplex takes a (12,) state and flat data, got "
+                         f"{tuple(state.shape)} and {tuple(data.shape)}")
+    s = [int(v) for v in gl.to_u64(state)]
+    d = [int(v) for v in gl.to_u64(data)]
+    end = len(d) if flush else len(d) - len(d) % RATE
+    for i in range(0, end, RATE):
+        chunk = d[i:min(i + RATE, end)]
+        s = _permute_list(chunk + s[len(chunk):])
+    out: List[int] = []
+    for i in range(0, n_squeeze, RATE):
+        out += s[:min(RATE, n_squeeze - i)]
+        s = _permute_list(s)
+    return gl.to_fp(s, state.device), gl.to_fp(out, state.device)
+
+
 def duplex(state: gl.Fp, data: gl.Fp, flush: bool = False,
            n_squeeze: int = 0) -> Tuple[gl.Fp, gl.Fp]:
-    """``duplex_plain``'s function: one launch of the cooperative CUDA
-    kernel for CUDA tensors, the plain loop for CPU tensors."""
+    """``duplex_plain``'s function for one (12,) state: one launch of the
+    cooperative CUDA kernel for CUDA tensors, ``duplex_ints`` for CPU
+    tensors."""
     if state.is_cuda:
         from ..ops import poseidon_cuda
         return poseidon_cuda.duplex(state.contiguous(), data.contiguous(),
                                     flush, n_squeeze)
     if state.device.type != "cpu":
         raise NotImplementedError(f"no Poseidon path for {state.device}")
-    return duplex_plain(state, data, flush, n_squeeze)
+    return duplex_ints(state, data, flush, n_squeeze)

@@ -10,6 +10,7 @@ repr, the port a structure tag of its own (convert.structure).
 from __future__ import annotations
 
 import json
+from dataclasses import asdict
 
 import numpy as np
 import torch
@@ -66,6 +67,12 @@ def deserialize_proof(data: bytes, like, device=None):
         raise ValueError("trailing bytes")
     pairs = list(zip(planes[0::2], planes[1::2]))
     return convert.proof_from_pairs(pairs, like, device)
+
+
+def serialize_config(config) -> bytes:
+    """The StarkConfig as sorted JSON, byte for byte the reference's."""
+    return json.dumps({"version": VERSION, **asdict(config)},
+                      sort_keys=True).encode()
 
 
 def empty_proof_like_shapes(air, config, log_n: int):
