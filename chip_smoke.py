@@ -48,27 +48,46 @@ Phases, a few lines each; any failure raises (non-zero exit, no final line):
   9. bundle-rotate — prove_rotate and verify_rotate: an epoch-end header
                 scheduling 300 new keys (RotateHeaderAir(128), 16384 x
                 803), the two 300-key chains, 32 signers; the same checks
-The main paths (6-9) each run with the launch counts set to 0 just before
-and read just after. Then the kernels at the main paths' shapes (above),
-and
- 10. ed25519-small — Ed25519VerifyAir(B=8), one signed lane, proved on the
+ 10. cli       — the CLI, python -m vectorx_tpu_torch, on fixture
+                directories written under build/chip_smoke_cli/, each run
+                a process of its own: the witness-level header_range at
+                production width (180 chained 1990-byte headers in 256
+                slots of 35,840 bytes, 300 authorities with 240 signed;
+                output against the host's) alone, and in process stage by
+                stage; then side by side: a wrong authority-set hash, a
+                broken link and 200 of 300 signed (each must exit non-zero),
+                rotate with 300 and with 120 new keys (output against the
+                host's authority_set_hash), the --stark route on 2 headers
+                and 4 authorities (its process reports its kernel launches;
+                the bundle file verifies again here) and build of each
+                program
+The main paths (6-10) each run with the launch counts set to 0 just before
+and read just after (the --stark process counts its own); the
+witness-level programs launch no Poseidon kernel. Then the kernels at the
+main paths' shapes (above), and
+ 11. ed25519-small — Ed25519VerifyAir(B=8), one signed lane, proved on the
                 card and, in a process of its own started before those
                 checks, on the CPU: identical payloads.
 The signatures come from an RFC 8032 signer on Python ints in this file
 (ed25519_sign), so no signing library is needed. Then one JSON line of the kernels, the total seconds, the card's name and
 power limit, and the result line {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --profile [header|merkle|chain|sha512|ed25519]
+    python3 chip_smoke.py --profile [header|merkle|chain|sha512|ed25519|witness]
 
 runs phases 1 and 2 and then, in place of the others, one warm prove and one
 verify of the named proof (header when none is named) under torch.profiler
 (CUDA activity only): the span, the device-busy time, the kernel count and
-the Poseidon kernels' time and count of each. It prints no result line.
+the Poseidon kernels' time and count of each; `witness` instead traces one
+warm witness-level header_range of the [cli-header-range] request, and
+alone its Blake2b, its authority-set chain and its verify_batch. It prints
+no result line.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
+import dataclasses
 import hashlib
 import json
 import multiprocessing
@@ -81,7 +100,7 @@ import numpy as np
 import torch
 
 from vectorx_tpu_torch import default_device
-from vectorx_tpu_torch.circuits import commitments, consts, scale
+from vectorx_tpu_torch.circuits import abi, commitments, consts, scale
 from vectorx_tpu_torch.circuits.ed25519 import D_CONST, L_ORDER, _BX, _BY
 from vectorx_tpu_torch.circuits.ed25519 import P as ED_P
 from vectorx_tpu_torch.field import goldilocks as gl
@@ -1144,6 +1163,378 @@ def phase_bundle_rotate():
     torch.cuda.empty_cache()
 
 
+# -- the CLI: python -m vectorx_tpu_torch on fixture directories ------------
+
+CLI_TRUSTED = 246150             # the golden request's span, 246150 -> 246330
+CLI_HEADERS = 180
+CLI_SET_ID = 0x75
+CLI_AUTHORITIES = consts.MAX_AUTHORITY_SET_SIZE
+CLI_SIGNED = 240                 # 240 * 3 > 300 * 2; 200 * 3 is not
+CLI_DIR = os.path.join("build", "chip_smoke_cli")
+# runs the module as `python -m` does, recording the shapes of its
+# duplex and sponge_rows launches as the main paths here do, and at exit
+# writes its kernel launch counts and those shapes
+CLI_COUNTED = ("import atexit, json, runpy, sys\n"
+               "import chip_smoke as cs\n"
+               "out = sys.argv.pop(1)\n"
+               "duplex, sponge_rows = set(), set()\n"
+               "cs.record_duplex_shapes(duplex)\n"
+               "cs.record_sponge_shapes(sponge_rows)\n"
+               "atexit.register(lambda: json.dump({'launches': dict(cs.pc.launches),"
+               " 'duplex': sorted(duplex), 'sponge_rows': sorted(sponge_rows)},"
+               " open(out, 'w')))\n"
+               "runpy.run_module('vectorx_tpu_torch', run_name='__main__',"
+               " alter_sys=True)\n")
+
+
+def write_fixture(path: str, headers: dict, meta: dict, justifications: dict,
+                  inputs: dict) -> str:
+    """A FixtureSource directory: {block}.header hex files, meta.json,
+    justifications.json and one {name}.json input file per entry."""
+    os.makedirs(path, exist_ok=True)
+    for block, header in headers.items():
+        with open(os.path.join(path, f"{block}.header"), "w") as f:
+            f.write(header.hex())
+    for name, blob in (("meta", meta), ("justifications", justifications)):
+        with open(os.path.join(path, f"{name}.json"), "w") as f:
+            json.dump(blob, f)
+    for name, raw in inputs.items():
+        with open(os.path.join(path, f"{name}.json"), "w") as f:
+            json.dump({"input": "0x" + raw.hex()}, f)
+    return path
+
+
+def justification_record(block: int, message: bytes, pubs, sigs, n_signed: int):
+    """The indexer's record: the first n_signed lanes signed, the rest
+    dummy."""
+    return dict(block_number=block, signed_message=message.hex(),
+                pubkeys=[p.hex() for p in pubs],
+                signatures=[(s if i < n_signed else bytes(64)).hex()
+                            for i, s in enumerate(sigs)],
+                num_authorities=len(pubs),
+                validator_signed=[i < n_signed for i in range(len(pubs))])
+
+
+def authority_set(rng, message: bytes, count: int, n_signing: int):
+    """-> (public keys, signatures) of `count` seeded keys, the first
+    n_signing signing `message` (the others' signatures are dummies)."""
+    pubs, sigs = [], []
+    for i in range(count):
+        seed = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+        if i < n_signing:
+            pub, sig = ed25519_sign(seed, message)
+        else:
+            pub, sig = ed25519_public_key(seed), bytes(64)
+        pubs.append(pub)
+        sigs.append(sig)
+    return pubs, sigs
+
+
+def start_cli(args, counts=None) -> tuple:
+    """Start python3 -m vectorx_tpu_torch ARGS in a process of its own ->
+    (process, start time). With `counts`, the module runs as `python -m`
+    runs it and the process writes there its kernel launch counts and the
+    shapes it gave duplex and sponge_rows."""
+    cmd = ([sys.executable, "-c", CLI_COUNTED, counts] if counts
+           else [sys.executable, "-m", "vectorx_tpu_torch"]) + list(args)
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+
+
+def finish_cli(started) -> tuple:
+    """-> (exit code, the JSON line it printed or its last error line,
+    seconds from its start)."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=900)
+    lines = (out if proc.returncode == 0 else err).strip()
+    return (proc.returncode, (lines.splitlines() or [""])[-1],
+            time.perf_counter() - t0)
+
+
+def run_cli(args, counts=None) -> tuple:
+    return finish_cli(start_cli(args, counts))
+
+
+def cli_output(args, counts=None) -> tuple:
+    """-> (output bytes, seconds) of a prove that must succeed."""
+    rc, line, seconds = run_cli(args, counts)
+    if rc != 0:
+        raise AssertionError(f"vectorx_tpu_torch {' '.join(args)} failed: {line}")
+    result = json.loads(line)
+    if result.get("ok") is not True:
+        raise AssertionError(f"no ok in {line}")
+    return bytes.fromhex(result["output"][2:]), seconds
+
+
+def header_range_fixture(root: str, n_headers: int, n_authorities: int,
+                         n_signed: int, seed: int):
+    """-> (fixture dir, headers, authorities) of a header_range request:
+    a trusted block and n_headers chained 1990-byte headers after it, the
+    justification at the target by n_authorities keys, n_signed signing.
+    Also writes a second input with a wrong authority-set hash."""
+    rng = np.random.default_rng(seed)
+    headers = {CLI_TRUSTED: make_header(rng, CLI_TRUSTED, HEADER_BYTES)}
+    parent = hashlib.blake2b(headers[CLI_TRUSTED], digest_size=32).digest()
+    trusted_hash = parent
+    for block in range(CLI_TRUSTED + 1, CLI_TRUSTED + 1 + n_headers):
+        headers[block] = make_header(rng, block, HEADER_BYTES, parent)
+        parent = hashlib.blake2b(headers[block], digest_size=32).digest()
+    target = CLI_TRUSTED + n_headers
+    message = scale.encode_precommit_bytes(parent, target, 3, CLI_SET_ID)
+    pubs, sigs = authority_set(rng, message, n_authorities, n_signed)
+    set_hash = commitments.authority_set_hash(pubs)
+    write_fixture(root, headers,
+                  {"authority_set_id": {str(CLI_TRUSTED): CLI_SET_ID},
+                   "authorities": {str(CLI_TRUSTED): [p.hex() for p in pubs]},
+                   "last_justified": {}},
+                  {str(target): justification_record(target, message, pubs,
+                                                     sigs, n_signed)},
+                  {"input": abi.HeaderRangeInput(
+                      CLI_TRUSTED, trusted_hash, CLI_SET_ID, set_hash,
+                      target).encode(),
+                   "input_wrong_set": abi.HeaderRangeInput(
+                      CLI_TRUSTED, trusted_hash, CLI_SET_ID,
+                      hashlib.sha256(b"x").digest(), target).encode()})
+    return root, headers, pubs, sigs, message
+
+
+def header_range_want(headers: dict, tree_size: int) -> bytes:
+    """The host's 96-byte output: Blake2b of the last header, the range
+    commitments over the state and data roots after the trusted block."""
+    blocks = sorted(headers)[1:]
+    fields = [scale.decode_header_bytes(headers[b]) for b in blocks]
+    return hashlib.blake2b(headers[blocks[-1]], digest_size=32).digest() + \
+        b"".join(commitments.range_commitments(
+            [f["state_root"] for f in fields], [f["data_root"] for f in fields],
+            tree_size))
+
+
+def witness_split(root: str, headers: dict):
+    """One in-process run of the witness-level header_range's stages on the
+    card (a synchronize after each) -> seconds by stage: Blake2b of the
+    slots, the decode and the two range trees, the challenges (SHA-512 and
+    the reduction mod L), the authority-set chain, verify_batch. Then the
+    whole subchain check, untimed."""
+    from vectorx_tpu_torch.circuits import ed25519 as ed
+    from vectorx_tpu_torch.parallel import subchain
+    from vectorx_tpu_torch.services import entrypoint, grandpa
+    from vectorx_tpu_torch.stark.hints import fetch_header_range_witness
+    dev = default_device()
+    split, last = {}, [time.perf_counter()]
+
+    def mark(stage):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[stage] = now - last[0]
+        last[0] = now
+
+    source = entrypoint.FixtureSource(root, device=dev)
+    target = max(headers)
+    hdrs, rec = fetch_header_range_witness(source, CLI_TRUSTED, target)
+    buf, sizes = subchain.pack_headers(hdrs, consts.HEADER_RANGE_TREE_SIZE_SMALL,
+                                       consts.MAX_HEADER_SIZE)
+    buf, sizes = torch.from_numpy(buf).to(dev), torch.from_numpy(sizes).to(dev)
+    mark("fetch_and_pack")
+    subchain.hash_headers(buf, sizes)
+    mark("blake2b")
+    decoded = scale.decode_header_vec(buf, sizes)
+    for roots in (decoded.state_root, decoded.data_root):
+        subchain._merkle_root_words(commitments._bytes32_to_words(roots))
+    mark("decode_and_trees")
+    jd = grandpa.to_device_justification(rec, CLI_AUTHORITIES, dev)
+    mark("challenges")
+    commitments.authority_set_hash_vec(jd.pubkeys, jd.num_authorities)
+    mark("authority_chain")
+    ok = ed.verify_batch(jd.pubkeys, jd.signatures[:, :32],
+                         jd.signatures[:, 32:], jd.challenges,
+                         jd.validator_signed)
+    mark("verify_batch")
+    trusted_hash = hashlib.blake2b(headers[CLI_TRUSTED], digest_size=32).digest()
+    sub = subchain.verify_subchain(
+        buf, sizes, target - CLI_TRUSTED,
+        torch.tensor(list(trusted_hash), dtype=torch.uint8, device=dev),
+        CLI_TRUSTED)
+    if not (bool(ok.all()) and bool(sub.links_ok) and bool(sub.blocks_sequential)):
+        raise AssertionError("the in-process witness run rejected the request")
+    return split
+
+
+def rotate_fixture(root: str, n_new: int, seed: int):
+    """-> (fixture dir, the new keys) of a rotate request: an epoch-end
+    header scheduling n_new keys, justified by 300 current keys with 240
+    signed."""
+    rng = np.random.default_rng(seed)
+    block, set_id = 246400, CLI_SET_ID + 1
+    new_pubs = [ed25519_public_key(bytes(rng.integers(0, 256, 32,
+                                                      dtype=np.uint8)))
+                for _ in range(n_new)]
+    header = epoch_end_header(rng, block, new_pubs)
+    message = scale.encode_precommit_bytes(
+        hashlib.blake2b(header, digest_size=32).digest(), block, 3, set_id)
+    pubs, sigs = authority_set(rng, message, CLI_AUTHORITIES, CLI_SIGNED)
+    write_fixture(root, {block: header},
+                  {"last_justified": {str(set_id): block},
+                   "authority_set_id": {str(block): set_id},
+                   "authorities": {str(block): [p.hex() for p in new_pubs]}},
+                  {str(block): justification_record(block, message, pubs, sigs,
+                                                    CLI_SIGNED)},
+                  {"input": abi.RotateInput(
+                      set_id, commitments.authority_set_hash(pubs)).encode()})
+    return root, new_pubs, header
+
+
+def forged_fixtures(d: str, headers: dict, pubs, sigs, message) -> dict:
+    """-> name: CLI arguments of the refused header_range requests: a wrong
+    authority-set hash, a broken parent link, two thirds signed (200 of
+    300: 200 * 3 is not > 300 * 2)."""
+    prove = ["header_range", "prove", os.path.join(d, "input.json"),
+             "--fixtures", d, "--output", os.path.join(d, "refused.json")]
+    with open(os.path.join(d, "meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(d, "justifications.json")) as f:
+        justifications = json.load(f)
+    bad = dict(headers)
+    block = CLI_TRUSTED + CLI_HEADERS // 2 + 1
+    bad[block] = bytes([bad[block][0] ^ 1]) + bad[block][1:]
+    broken = write_fixture(os.path.join(CLI_DIR, "broken_link"), bad, meta,
+                           justifications, {})
+    target = max(headers)
+    minority = write_fixture(
+        os.path.join(CLI_DIR, "minority"), headers, meta,
+        {str(target): justification_record(target, message, pubs, sigs,
+                                           CLI_AUTHORITIES * 2 // 3)}, {})
+    return {"wrong_set_hash": prove[:2] + [os.path.join(d, "input_wrong_set.json")]
+            + prove[3:],
+            "broken_link": prove[:4] + [broken] + prove[5:],
+            "two_thirds_signed": prove[:4] + [minority] + prove[5:]}
+
+
+def cli_result(what: str, done) -> bytes:
+    """The output bytes of a finished prove that must have succeeded."""
+    rc, line, _ = done
+    if rc != 0:
+        raise AssertionError(f"vectorx_tpu_torch {what} failed: {line}")
+    result = json.loads(line)
+    if result.get("ok") is not True:
+        raise AssertionError(f"no ok in {line}")
+    return bytes.fromhex(result["output"][2:])
+
+
+def phase_cli(duplex_shapes: set, sponge_shapes: set):
+    """-> launches per kernel of the --stark process, whose duplex and
+    sponge_rows shapes join the main paths' in the two sets. The CLI, `python -m
+    vectorx_tpu_torch`, on fixture directories, each run a process of its
+    own: first the witness-level header_range at production width alone
+    (180 chained 1990-byte headers in the 256 slots of 35,840 bytes, 300
+    authorities with 240 signed) and the same request in process, stage by
+    stage; then side by side: the three forged requests (each must exit
+    non-zero), rotate with 300 new keys and with 120 (whose 12,004-byte
+    record window runs past the padded header: the bytes read there are
+    255, as in the JAX package), the --stark route on a small request (2
+    headers, tree size 16, 4 authorities with 3 signed; the CLI fixes the
+    300-key chain and ed_B = 8) and `build` of each program. The bundle
+    file the --stark route wrote verifies again here."""
+    t0 = time.perf_counter()
+    d, headers, pubs, sigs, message = header_range_fixture(
+        os.path.join(CLI_DIR, "header_range"), CLI_HEADERS, CLI_AUTHORITIES,
+        CLI_SIGNED, 61)
+    jobs = {k: (v,) for k, v in forged_fixtures(d, headers, pubs, sigs,
+                                                message).items()}
+    rotations = {}
+    for n_new in (consts.MAX_AUTHORITY_SET_SIZE, 120):
+        rd, new_pubs, header = rotate_fixture(
+            os.path.join(CLI_DIR, f"rotate_{n_new}"), n_new, 70 + n_new)
+        rotations[n_new] = new_pubs, header
+        jobs[f"rotate_{n_new}"] = (["rotate", "prove",
+                                    os.path.join(rd, "input.json"),
+                                    "--fixtures", rd, "--output",
+                                    os.path.join(rd, "output.json")],)
+    sd, stark_headers, _, _, _ = header_range_fixture(
+        os.path.join(CLI_DIR, "stark"), 2, 4, 3, 91)
+    proof = os.path.join(sd, "bundle.bin")
+    counts = os.path.join(sd, "launches.json")
+    jobs["stark"] = (["header_range", "prove", os.path.join(sd, "input.json"),
+                      "--fixtures", sd, "--tree-size", "16", "--stark",
+                      "--proof", proof, "--output",
+                      os.path.join(sd, "output.json")], counts)
+    for program in ("header_range", "rotate"):
+        jobs[f"build_{program}"] = ([program, "build", "--artifacts",
+                                     os.path.join(CLI_DIR, f"build_{program}")],)
+    fixture_s = time.perf_counter() - t0
+
+    out, seconds = cli_output(["header_range", "prove",
+                               os.path.join(d, "input.json"), "--fixtures", d,
+                               "--output", os.path.join(d, "output.json")])
+    if out != header_range_want(headers, consts.HEADER_RANGE_TREE_SIZE_SMALL):
+        raise AssertionError("CLI header_range output != the host's")
+    split = witness_split(d, headers)
+
+    t0 = time.perf_counter()
+    started = {what: start_cli(*job) for what, job in jobs.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(started)) as pool:
+        done = dict(zip(started, pool.map(finish_cli, started.values())))
+    side_by_side_s = time.perf_counter() - t0
+    for what in ("wrong_set_hash", "broken_link", "two_thirds_signed"):
+        if done[what][0] == 0:
+            raise AssertionError(f"the CLI accepted {what}: {done[what][1]}")
+    fields = {}
+    for n_new, (new_pubs, header) in rotations.items():
+        if (cli_result(f"rotate {n_new}", done[f"rotate_{n_new}"])
+                != commitments.authority_set_hash(new_pubs)):
+            raise AssertionError(f"CLI rotate output != the host's ({n_new})")
+        padded = len(header) + (-len(header)) % 128
+        window_end = header.index(new_pubs[0]) + consts.MAX_SUBARRAY_SIZE
+        fields[f"new_{n_new}_command_s"] = f"{done[f'rotate_{n_new}'][2]:.3f}"
+        fields[f"new_{n_new}_header_bytes"] = len(header)
+        fields[f"new_{n_new}_window_past_end_bytes"] = max(window_end - padded, 0)
+    for program in ("header_range", "rotate"):
+        art = os.path.join(CLI_DIR, f"build_{program}", "manifest.json")
+        if done[f"build_{program}"][0] != 0 or not os.path.exists(art):
+            raise AssertionError(f"CLI build {program} failed: "
+                                 f"{done[f'build_{program}'][1]}")
+    want = header_range_want(stark_headers, 16)
+    if cli_result("--stark", done["stark"]) != want:
+        raise AssertionError("CLI --stark output != the host's")
+    with open(counts) as f:
+        recorded = json.load(f)
+    duplex_shapes.update(tuple(x) for x in recorded["duplex"])
+    sponge_shapes.update(tuple(x) for x in recorded["sponge_rows"])
+    inp = abi.HeaderRangeInput.decode(bytes.fromhex(
+        json.load(open(os.path.join(sd, "input.json")))["input"][2:]))
+    with open(proof, "rb") as f:
+        blob = f.read()
+    bundle, cfg = statements.deserialize_header_range(blob)
+    t0 = time.perf_counter()
+    again = statements.verify_header_range(
+        bundle, inp.trusted_block, inp.trusted_header_hash,
+        inp.authority_set_id, inp.authority_set_hash, inp.target_block, cfg)
+    if b"".join(again) != want:
+        raise AssertionError("the CLI's bundle file does not verify again")
+    reverify_s = time.perf_counter() - t0
+
+    log("cli-header-range", headers=CLI_HEADERS,
+        slots=f"{consts.HEADER_RANGE_TREE_SIZE_SMALL}x{consts.MAX_HEADER_SIZE}",
+        authorities=CLI_AUTHORITIES, signed=CLI_SIGNED, output="host",
+        command_s=f"{seconds:.3f}", fixtures_s=f"{fixture_s:.1f}",
+        refused="wrong_set_hash|broken_link|two_thirds_signed",
+        **{f"refused_{k}_s": f"{done[k][2]:.3f}"
+           for k in ("wrong_set_hash", "broken_link", "two_thirds_signed")})
+    log("cli-header-range-split", **{f"{k}_s": f"{v:.4f}"
+                                     for k, v in split.items()})
+    log("cli-rotate", authorities=CLI_AUTHORITIES, signed=CLI_SIGNED,
+        output="authority_set_hash", **fields)
+    log("cli-stark", headers=2, tree_size=16, authorities=4, signed=3,
+        config=json.dumps(dataclasses.asdict(cfg)).replace(" ", ""),
+        output="host", command_s=f"{done['stark'][2]:.3f}",
+        bundle_bytes=len(blob), reverify_s=f"{reverify_s:.3f}",
+        **{f"build_{p}_s": f"{done[f'build_{p}'][2]:.2f}"
+           for p in ("header_range", "rotate")})
+    log("cli-side-by-side", processes=len(jobs),
+        seconds=f"{side_by_side_s:.1f}")
+    return recorded["launches"]
+
+
 def slice_setup():
     air = ah.HeaderAir(max_chunks=HEADER_CHUNKS)
     cfg = prover.StarkConfig(rate_bits=3, num_queries=28, final_poly_len=8,
@@ -1151,9 +1542,89 @@ def slice_setup():
     return air, air.n_rows.bit_length() - 1, cfg
 
 
+def traced(name, fn):
+    """One run of fn under torch.profiler (CUDA activity): span, busy
+    time and share, kernel count, the Poseidon kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    busy_us = poseidon_us = kernels = poseidon_kernels = 0
+    by_name = {}
+    for row in prof.key_averages():
+        us = getattr(row, "self_device_time_total", None)
+        if us is None:
+            us = row.self_cuda_time_total
+        if not us:
+            continue
+        busy_us += us
+        kernels += row.count
+        for kernel in ("sponge_rows_coop_kernel", "sponge_rows_kernel",
+                       "permute_coop_kernel", "permute_kernel",
+                       "duplex_kernel"):
+            if kernel in row.key:
+                poseidon_us += us
+                poseidon_kernels += row.count
+                by_name[kernel] = f"{us / 1e3:.3f}ms/{row.count}"
+                break
+    if busy_us == 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"profile-{name}", span_ms=f"{span * 1e3:.1f}",
+        device_busy_ms=f"{busy_us / 1e3:.1f}",
+        busy_share=f"{busy_us / 1e6 / span:.3f}", kernels=kernels,
+        poseidon_ms=f"{poseidon_us / 1e3:.3f}",
+        poseidon_share_of_busy=f"{poseidon_us / busy_us:.4f}",
+        poseidon_kernels=poseidon_kernels, **by_name)
+
+
+def profile_witness():
+    """One warm witness-level header_range at production width (the
+    [cli-header-range] request) under the profiler, and its stages."""
+    from vectorx_tpu_torch.circuits import ed25519 as ed
+    from vectorx_tpu_torch.parallel import subchain
+    from vectorx_tpu_torch.services import entrypoint, grandpa
+    dev = default_device()
+    d, headers, _, _, _ = header_range_fixture(
+        os.path.join(CLI_DIR, "profile"), CLI_HEADERS, CLI_AUTHORITIES,
+        CLI_SIGNED, 61)
+    source = entrypoint.FixtureSource(d, device=dev)
+    with open(os.path.join(d, "input.json")) as f:
+        raw = bytes.fromhex(json.load(f)["input"][2:])
+    log("profile", program="header_range", headers=CLI_HEADERS,
+        slots=f"{consts.HEADER_RANGE_TREE_SIZE_SMALL}x{consts.MAX_HEADER_SIZE}",
+        authorities=CLI_AUTHORITIES, signed=CLI_SIGNED)
+
+    def program():
+        return entrypoint.run_program("header_range", raw, source,
+                                      device=dev)
+
+    if program() != header_range_want(headers,
+                                       consts.HEADER_RANGE_TREE_SIZE_SMALL):
+        raise AssertionError("witness-level header_range output != the host's")
+    blocks = sorted(headers)[1:]
+    buf, sizes = subchain.pack_headers([headers[b] for b in blocks],
+                                       consts.HEADER_RANGE_TREE_SIZE_SMALL,
+                                       consts.MAX_HEADER_SIZE)
+    buf, sizes = torch.from_numpy(buf).to(dev), torch.from_numpy(sizes).to(dev)
+    jd = grandpa.to_device_justification(
+        source.get_justification_record(max(headers)), CLI_AUTHORITIES, dev)
+    traced("witness-program", program)
+    traced("witness-blake2b", lambda: subchain.hash_headers(buf, sizes))
+    traced("witness-authority-chain", lambda: commitments.authority_set_hash_vec(
+        jd.pubkeys, jd.num_authorities))
+    traced("witness-verify-batch", lambda: ed.verify_batch(
+        jd.pubkeys, jd.signatures[:, :32], jd.signatures[:, 32:],
+        jd.challenges, jd.validator_signed))
+
+
 def phase_profile(which: str):
     """Where the device time of one warm prove and one verify goes."""
     from torch.profiler import ProfilerActivity, profile
+    if which == "witness":
+        return profile_witness()
     if which == "header":
         air, log_n, cfg = slice_setup()
         case = header_case(air, make_header(np.random.default_rng(3), 1000,
@@ -1166,40 +1637,6 @@ def phase_profile(which: str):
     proof = prover.prove(air, *case, cfg)                     # cold: VK, tables
     if not verifier.verify(air, proof, case[1], log_n, cfg):
         raise AssertionError("the port verifier rejected an honest proof")
-
-    def traced(name, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            span = time.perf_counter() - t0
-        busy_us = poseidon_us = kernels = poseidon_kernels = 0
-        by_name = {}
-        for row in prof.key_averages():
-            us = getattr(row, "self_device_time_total", None)
-            if us is None:
-                us = row.self_cuda_time_total
-            if not us:
-                continue
-            busy_us += us
-            kernels += row.count
-            for kernel in ("sponge_rows_coop_kernel", "sponge_rows_kernel",
-                           "permute_coop_kernel", "permute_kernel",
-                           "duplex_kernel"):
-                if kernel in row.key:
-                    poseidon_us += us
-                    poseidon_kernels += row.count
-                    by_name[kernel] = f"{us / 1e3:.3f}ms/{row.count}"
-                    break
-        if busy_us == 0:
-            raise AssertionError("the profiler saw no device time")
-        log(f"profile-{name}", span_ms=f"{span * 1e3:.1f}",
-            device_busy_ms=f"{busy_us / 1e3:.1f}",
-            busy_share=f"{busy_us / 1e6 / span:.3f}", kernels=kernels,
-            poseidon_ms=f"{poseidon_us / 1e3:.3f}",
-            poseidon_share_of_busy=f"{poseidon_us / busy_us:.4f}",
-            poseidon_kernels=poseidon_kernels, **by_name)
 
     traced("prove", lambda: prover.prove(air, *case, cfg))
     traced("verify", lambda: verifier.verify(air, proof, case[1], log_n, cfg))
@@ -1250,6 +1687,12 @@ def main() -> int:
         log(f"{path}-launches-total", **launches, total=sum(launches.values()))
         if min(launches.values()) <= 0:
             raise AssertionError(f"the {path} path skipped a kernel: {launches}")
+    # the CLI: the witness-level programs (no Poseidon kernel on their
+    # path) and the --stark route, whose process reports its launches
+    by_path["cli-stark"] = launches = phase_cli(duplex_shapes, sponge_shapes)
+    log("cli-stark-launches-total", **launches, total=sum(launches.values()))
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the cli-stark path skipped a kernel: {launches}")
     # the kernels at the main paths' shapes, and the B = 8 Ed25519 proof on
     # the card against the CPU's, which a process of its own proves
     # meanwhile (the pool stops it on the way out)

@@ -263,3 +263,81 @@ def test_prove_sigs_and_verify_sigs_on_card(card, ed25519_shard):
     forged = (Ed25519VerifyAir([(a, r, s, (h + 1) % (1 << 252))], B=8),
               proof, publics)
     assert not ed25519_prove.verify_sigs([shards[0], forged], cfg)
+
+
+# -- the witness-level programs' torch ops on the card ------------------------
+
+def _limbs(seed, n):
+    from vectorx_tpu_torch.field import field25519 as fe
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(32), "little") for _ in range(n - 4)]
+    vals += [0, fe.P25519 - 1, fe.P25519, (1 << 256) - 1]
+    return torch.tensor([fe.int_limbs(v) for v in vals])
+
+
+@pytest.mark.parametrize("name", ["mul", "sub", "pow_p58"])
+def test_field25519_on_card_equals_cpu(card, name):
+    from vectorx_tpu_torch.field import field25519 as fe
+    a, b = _limbs(81, 600), _limbs(82, 600)
+    args = (a,) if name == "pow_p58" else (a, b)
+    on_card = getattr(fe, name)(*(x.to(card) for x in args))
+    assert on_card.is_cuda
+    assert torch.equal(on_card.cpu(), getattr(fe, name)(*args))
+
+
+def test_blake2b_256_slots_of_280_chunks_on_card_equals_cpu(card):
+    import hashlib
+    from vectorx_tpu_torch.hashes import blake2b as b2
+    from vectorx_tpu_torch.parallel import subchain
+    rng = np.random.default_rng(83)
+    sizes = rng.integers(0, 280 * 128 + 1, 256)
+    sizes[:4] = (0, 1, 1990, 280 * 128)
+    buf = np.zeros((256, 280 * 128), np.uint8)
+    for i, n in enumerate(sizes):
+        buf[i, :n] = rng.integers(0, 256, n, dtype=np.uint8)
+    x, n = torch.from_numpy(buf), torch.from_numpy(sizes)
+    on_card = subchain.hash_headers(x.to(card), n.to(card))
+    assert torch.equal(on_card.cpu(), subchain.hash_headers(x, n))
+    for i in (0, 1, 2, 3, 100):
+        assert bytes(on_card[i].cpu().numpy()) == hashlib.blake2b(
+            buf[i, :sizes[i]].tobytes(), digest_size=32).digest()
+    lo, hi = (torch.from_numpy(a.astype(np.int64)) for a in b2.pack_message(
+        buf[2, :1990].tobytes(), 280)[:2])
+    planes = b2.blake2b256_variable(lo[None].to(card), hi[None].to(card),
+                                    torch.tensor([1990], device=card))
+    assert bytes(subchain._digest_planes_to_bytes32(*planes)[0].cpu().numpy()) \
+        == bytes(on_card[2].cpu().numpy())
+
+
+def test_verify_batch_300_lanes_on_card_equals_cpu(card):
+    """240 signed lanes, 60 disabled, one forged: the card's flags equal
+    the CPU's."""
+    from vectorx_tpu_torch.circuits import ed25519 as ed
+    smoke = _chip_smoke()
+    message = smoke.precommit(np.random.default_rng(84))
+    pubs, sigs = smoke.authority_set(np.random.default_rng(85), message, 300,
+                                     240)
+    sigs[7] = sigs[7][:40] + bytes([sigs[7][40] ^ 1]) + sigs[7][41:]
+    pk = torch.tensor([list(p) for p in pubs], dtype=torch.uint8)
+    sg = torch.tensor([list(s) for s in sigs], dtype=torch.uint8)
+    ch = torch.from_numpy(ed.compute_challenges(
+        [s[:32] for s in sigs], pubs, message, card))
+    enabled = torch.arange(300) < 240
+    args = (pk, sg[:, :32], sg[:, 32:], ch, enabled)
+    on_card = ed.verify_batch(*(a.to(card) for a in args))
+    on_cpu = ed.verify_batch(*args)
+    assert torch.equal(on_card.cpu(), on_cpu)
+    assert on_cpu.sum() == 299 and not on_cpu[7]
+
+
+def test_out_of_range_window_reads_the_fill_on_card(card):
+    """The record window of a short set runs past the buffer: on the card
+    the gather neither raises nor trips a device assert, and reads 255."""
+    from vectorx_tpu_torch.circuits import rotate as rot
+    arr = torch.arange(200, dtype=torch.uint8, device=card)[None]
+    got = rot._window(arr, torch.tensor([150], device=card), 12004)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0, :50].cpu(), torch.arange(150, 200, dtype=torch.uint8))
+    assert bool((got[0, 50:] == 255).all())
+    low = rot._window(arr, torch.tensor([-210], device=card), 20)
+    assert low[0, :10].tolist() == [255] * 10 and low[0, 10:].tolist() == list(range(10))

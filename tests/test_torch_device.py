@@ -3,8 +3,9 @@
 Without a CUDA device ``default_device()`` and every entry point called
 with ``device=None`` raise (the port never moves to the CPU on its own);
 with ``device="cpu"`` the same calls run and give CPU tensors. Also: no
-module of the port, and not chip_smoke.py, imports ``jax`` or the JAX
-package (their sources are scanned).
+module of the port, and not chip_smoke.py, imports ``jax``, the JAX
+package or ``cryptography`` (their sources are scanned; the card's
+machine has no ``cryptography``).
 """
 
 import ast
@@ -16,9 +17,13 @@ import torch
 
 import vectorx_tpu_torch as vt
 from vectorx_tpu_torch import convert
+from vectorx_tpu_torch.circuits import ed25519 as ed
+from vectorx_tpu_torch.circuits import justification as just
 from vectorx_tpu_torch.field import ext
+from vectorx_tpu_torch.field import field25519 as fe
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.poly import domain as dom
+from vectorx_tpu_torch.hashes import blake2b as hb2
 from vectorx_tpu_torch.hashes import sha256 as s2
 from vectorx_tpu_torch.hashes import sha512 as s5
 from vectorx_tpu_torch.stark import air_blake2b as b2
@@ -85,6 +90,22 @@ ENTRY_POINTS = {
     "sha512_bytes": (
         lambda d: torch.tensor(list(s5.sha512_bytes([b"abc"], d)[0])),
         lambda r: r),
+    "field25519.zeros": (lambda d: fe.zeros((2,), d), lambda r: r),
+    "field25519.const": (lambda d: fe.const((2,), 5, d), lambda r: r),
+    "field25519.to_limbs": (lambda d: fe.to_limbs([3, 4], d), lambda r: r),
+    "ed25519.identity": (lambda d: ed.identity((2,), d), lambda r: r.y),
+    "ed25519.base_point": (lambda d: ed.base_point((2,), d), lambda r: r.x),
+    "ed25519.compute_challenges": (
+        lambda d: torch.from_numpy(ed.compute_challenges(
+            [bytes(32)], [bytes(32)], b"m", d).astype(np.int64)),
+        lambda r: r),
+    "blake2b256_bytes": (
+        lambda d: torch.tensor(list(hb2.blake2b256_bytes([b"abc"], 1, d)[0])),
+        lambda r: r),
+    "prepare_justification": (
+        lambda d: just.prepare_justification(
+            [bytes(32).hex()], [bytes(64).hex()], [False], 1, bytes(53), 2, d),
+        lambda r: r.num_authorities),
     "constant_vk": (
         lambda d: prover.constant_vk(
             CONST_AIR, 7, prover.StarkConfig(rate_bits=1), d),
@@ -163,5 +184,5 @@ def test_port_source_imports_no_jax(path):
         if level:                       # relative: stays inside the port
             continue
         top = module.split(".")[0]
-        assert top not in ("jax", "jaxlib", "flax", "vectorx_tpu"), (
-            f"{path.name} imports {module}")
+        assert top not in ("jax", "jaxlib", "flax", "vectorx_tpu",
+                           "cryptography"), f"{path.name} imports {module}"

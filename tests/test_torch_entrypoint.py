@@ -1,0 +1,267 @@
+"""The port's CLI (``python -m vectorx_tpu_torch``) on a fixture directory.
+
+The test writes a directory in the ``FixtureSource`` layout ({block}.header
+hex files, meta.json, justifications.json and input files) from seeded
+bytes: a trusted block and three chained headers after it, a
+justification at the target by four authorities with three signed
+(cryptography's ``from_private_bytes`` on seeded bytes), and an epoch-end
+header that schedules five new keys, justified by the same four. Then,
+through the port's ``main([...])`` with ``--device cpu``:
+
+- ``dummy_header_range``, ``dummy_rotate`` and ``genesis`` print the same
+  JSON as the JAX package's ``main`` (host code on both sides);
+- the witness-level ``header_range`` and ``rotate prove`` routes give the
+  host values (hashlib's Blake2b, ``range_commitments``,
+  ``authority_set_hash``) with ``--tree-size 8`` (the CLI's slots are a
+  fixed 35,840 bytes and its lanes a fixed 300), and a wrong set hash
+  exits non-zero;
+- ``build`` writes the JAX package's manifest.json and config.json byte
+  for byte (their SHA-256 below is that of the JAX package's
+  ``build_program`` for the same arguments; the ``slow`` test recomputes
+  them, as the JAX build takes minutes on a CPU);
+- without ``--fixtures`` the CLI exits with the stated message, without a
+  card and ``--device`` it refuses, and ``--help`` runs.
+
+The ``slow`` tests hold the witness routes' JSON against ``python -m
+vectorx_tpu`` (the JAX package compiles its 300-lane verification) and run
+the ``--stark`` route, whose bundle proves ChainedSha256Air(300) at the
+CLI's fixed width.
+"""
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from cryptography.hazmat.primitives import serialization
+from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PrivateKey
+
+from vectorx_tpu_torch.circuits import commitments, scale
+from vectorx_tpu_torch.circuits.abi import HeaderRangeInput, RotateInput
+from vectorx_tpu_torch.services import entrypoint
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRUSTED, N_HEADERS, SET_ID, EPOCH_END, ROT_SET_ID = 5000, 3, 7, 5100, 8
+
+# sha256 of the JAX package's build_program artifacts (tree size 8,
+# max chunks 2, the CLI's 300 authorities); see test_build_equals_reference
+BUILD_SHA256 = {
+    "header_range": (
+        "e77a9904fe0a0d7a6204488663b6e2acf4d84031d35d5482fc2062db20239b64",
+        "cf55044f807c2b8765b91490e08cb7b964f04ade6e6817e2484041412e6920fd"),
+    "rotate": (
+        "6c927b62c41c46befb7b4b15ccf47777ed5eef86a295a375946d22b5415e1d23",
+        "cf55044f807c2b8765b91490e08cb7b964f04ade6e6817e2484041412e6920fd"),
+}
+
+
+def _keys(n, rng):
+    keys = [Ed25519PrivateKey.from_private_bytes(rng.bytes(32))
+            for _ in range(n)]
+    return keys, [k.public_key().public_bytes(
+        serialization.Encoding.Raw, serialization.PublicFormat.Raw)
+        for k in keys]
+
+
+def _record(keys, pubs, block_hash, block, set_id, n_sign):
+    msg = scale.encode_precommit_bytes(block_hash, block, 1, set_id)
+    return dict(block_number=block, signed_message=msg.hex(),
+                pubkeys=[p.hex() for p in pubs],
+                signatures=[k.sign(msg).hex() if i < n_sign else
+                            bytes(64).hex() for i, k in enumerate(keys)],
+                num_authorities=len(keys),
+                validator_signed=[i < n_sign for i in range(len(keys))])
+
+
+def _epoch_end_header(rng, new_pubs):
+    validators = b"".join(p + b"\x01" + bytes(7) for p in new_pubs)
+    sched = (b"\x01" + scale.encode_compact_u32(len(new_pubs)) + validators
+             + bytes(4))
+    log = b"\x04" + b"FRNK" + scale.encode_compact_u32(len(sched)) + sched
+    return (rng.bytes(32) + scale.encode_compact_u32(EPOCH_END)
+            + rng.bytes(72) + b"\x00" + log + rng.bytes(32))
+
+
+@pytest.fixture(scope="module")
+def fixture_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("fixtures")
+    rng = np.random.default_rng(71)
+    keys, pubs = _keys(4, rng)
+    headers = {TRUSTED: rng.bytes(120)}
+    parent = hashlib.blake2b(headers[TRUSTED], digest_size=32).digest()
+    for b in range(TRUSTED + 1, TRUSTED + 1 + N_HEADERS):
+        body = parent + scale.encode_compact_u32(b) + rng.bytes(200)
+        headers[b] = body
+        parent = hashlib.blake2b(body, digest_size=32).digest()
+    target = TRUSTED + N_HEADERS
+    _, new_pubs = _keys(5, rng)
+    headers[EPOCH_END] = _epoch_end_header(rng, new_pubs)
+    epoch_hash = hashlib.blake2b(headers[EPOCH_END], digest_size=32).digest()
+    for b, h in headers.items():
+        (d / f"{b}.header").write_text(h.hex())
+    auth_hex = [p.hex() for p in pubs]
+    (d / "meta.json").write_text(json.dumps({
+        "last_justified": {str(ROT_SET_ID): EPOCH_END},
+        "authority_set_id": {str(TRUSTED): SET_ID, str(EPOCH_END): ROT_SET_ID},
+        "authorities": {str(TRUSTED): auth_hex,
+                        str(EPOCH_END): [p.hex() for p in new_pubs]}}))
+    (d / "justifications.json").write_text(json.dumps({
+        str(target): _record(keys, pubs, parent, target, SET_ID, 3),
+        str(EPOCH_END): _record(keys, pubs, epoch_hash, EPOCH_END,
+                                ROT_SET_ID, 3)}))
+    set_hash = commitments.authority_set_hash(pubs)
+    trusted_hash = hashlib.blake2b(headers[TRUSTED], digest_size=32).digest()
+    inputs = {
+        "hr": HeaderRangeInput(TRUSTED, trusted_hash, SET_ID, set_hash, target),
+        "hr_wrong_set": HeaderRangeInput(TRUSTED, trusted_hash, SET_ID,
+                                         bytes(32), target),
+        "rot": RotateInput(ROT_SET_ID, set_hash),
+    }
+    for name, inp in inputs.items():
+        (d / f"{name}.json").write_text(
+            json.dumps({"input": "0x" + inp.encode().hex()}))
+    fields = [scale.decode_header_bytes(headers[b])
+              for b in range(TRUSTED + 1, target + 1)]
+    want_hr = parent + b"".join(commitments.range_commitments(
+        [f["state_root"] for f in fields], [f["data_root"] for f in fields], 8))
+    return dict(dir=d, want_hr=want_hr,
+                want_rot=commitments.authority_set_hash(new_pubs))
+
+
+def _port(args, capsys):
+    assert entrypoint.main(args) == 0
+    return json.loads(capsys.readouterr().out)
+
+
+def _prove(fixture_dir, capsys, program, inp, *extra):
+    d = fixture_dir["dir"]
+    return _port([program, "prove", str(d / f"{inp}.json"), "--fixtures",
+                  str(d), "--device", "cpu", "--output",
+                  str(d / f"out_{program}_{inp}.json"), *extra], capsys)
+
+
+def _jax_main(args, capsys):
+    from vectorx_tpu.services import entrypoint as jentry
+    assert jentry.main(args) == 0
+    return json.loads(capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("program,inp", [("dummy_header_range", "hr"),
+                                         ("dummy_rotate", "rot")])
+def test_dummy_programs_equal_reference(fixture_dir, capsys, program, inp):
+    d = fixture_dir["dir"]
+    args = [program, "prove", str(d / f"{inp}.json"), "--fixtures", str(d),
+            "--tree-size", "8", "--output", str(d / "out_dummy.json")]
+    got = _port(args + ["--device", "cpu"], capsys)
+    assert got == _jax_main(args, capsys)
+    want = fixture_dir["want_hr" if inp == "hr" else "want_rot"]
+    assert got["output"] == "0x" + want.hex()
+
+
+@pytest.mark.parametrize("block", [TRUSTED, EPOCH_END])
+def test_genesis_equals_reference(fixture_dir, capsys, block):
+    args = ["genesis", "--fixtures", str(fixture_dir["dir"]), "--block",
+            str(block)]
+    assert _port(args + ["--device", "cpu"], capsys) == _jax_main(args, capsys)
+
+
+def test_header_range_prove_gives_the_host_values(fixture_dir, capsys):
+    got = _prove(fixture_dir, capsys, "header_range", "hr", "--tree-size", "8")
+    assert got == {"output": "0x" + fixture_dir["want_hr"].hex(), "ok": True}
+    d = fixture_dir["dir"]
+    assert json.loads((d / "out_header_range_hr.json").read_text()) == got
+
+
+def test_rotate_prove_gives_the_new_set_hash(fixture_dir, capsys):
+    got = _prove(fixture_dir, capsys, "rotate", "rot")
+    assert got == {"output": "0x" + fixture_dir["want_rot"].hex(), "ok": True}
+
+
+def test_header_range_wrong_set_hash_exits_non_zero(fixture_dir, capsys):
+    with pytest.raises(SystemExit) as err:
+        _prove(fixture_dir, capsys, "header_range", "hr_wrong_set",
+               "--tree-size", "8")
+    assert err.value.code == "header_range verification FAILED"
+
+
+@pytest.mark.parametrize("program", ["header_range", "rotate"])
+def test_build_writes_the_reference_artifacts(tmp_path, capsys, program):
+    out = _port([program, "build", "--tree-size", "8", "--max-chunks", "2",
+                 "--artifacts", str(tmp_path), "--device", "cpu"], capsys)
+    manifest = json.loads((tmp_path / "manifest.json").read_text())
+    assert out["built"] == program and set(out["airs"]) == set(manifest["airs"])
+    got = tuple(hashlib.sha256((tmp_path / f).read_bytes()).hexdigest()
+                for f in ("manifest.json", "config.json"))
+    assert got == BUILD_SHA256[program]
+
+
+def test_without_fixtures_the_live_source_is_refused(fixture_dir):
+    d = fixture_dir["dir"]
+    with pytest.raises(SystemExit) as err:
+        entrypoint.main(["header_range", "prove", str(d / "hr.json"),
+                         "--device", "cpu"])
+    assert "live source (AVAIL_URL) is not ported yet" in str(err.value.code)
+
+
+def test_without_a_card_the_device_must_be_named(fixture_dir, capsys,
+                                                 monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = fixture_dir["dir"]
+    with pytest.raises(SystemExit) as err:
+        entrypoint.main(["header_range", "prove", str(d / "hr.json"),
+                         "--fixtures", str(d)])
+    assert err.value.code == 2
+    assert "found none" in capsys.readouterr().err
+
+
+def test_module_help_runs():
+    out = subprocess.run([sys.executable, "-m", "vectorx_tpu_torch", "--help"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0
+    assert "--device" in out.stdout and "--fixtures" in out.stdout
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("program,inp", [("header_range", "hr"),
+                                         ("rotate", "rot")])
+def test_witness_routes_equal_the_jax_cli(fixture_dir, capsys, program, inp):
+    d = fixture_dir["dir"]
+    args = [program, "prove", str(d / f"{inp}.json"), "--fixtures", str(d),
+            "--tree-size", "8", "--output", str(d / "out_slow.json")]
+    assert _port(args + ["--device", "cpu"], capsys) == _jax_main(args, capsys)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("program", ["header_range", "rotate"])
+def test_build_equals_reference(tmp_path, program):
+    from vectorx_tpu.services import entrypoint as jentry
+    jentry.build_program(program, 8, 2, str(tmp_path / "jax"))
+    entrypoint.build_program(program, 8, 2, str(tmp_path / "port"))
+    for f in ("manifest.json", "config.json"):
+        assert (tmp_path / "jax" / f).read_bytes() == \
+            (tmp_path / "port" / f).read_bytes()
+
+
+@pytest.mark.slow
+def test_stark_route_proves_and_verifies(fixture_dir, capsys, tmp_path):
+    from vectorx_tpu_torch.stark import statements
+    from vectorx_tpu_torch.stark.prover import StarkConfig
+    proof = tmp_path / "bundle.bin"
+    got = _prove(fixture_dir, capsys, "header_range", "hr", "--tree-size",
+                 "16", "--stark", "--proof", str(proof))
+    hr = HeaderRangeInput.decode(bytes.fromhex(json.loads(
+        (fixture_dir["dir"] / "hr.json").read_text())["input"][2:]))
+    bundle, cfg = statements.deserialize_header_range(proof.read_bytes(),
+                                                      device="cpu")
+    assert cfg == StarkConfig()
+    outs = statements.verify_header_range(
+        bundle, hr.trusted_block, hr.trusted_header_hash, hr.authority_set_id,
+        hr.authority_set_hash, hr.target_block, cfg, device="cpu")
+    assert got["output"] == "0x" + b"".join(outs).hex()
+    assert outs[0] == fixture_dir["want_hr"][:32]

@@ -3,15 +3,21 @@ hand-written CUDA kernels for an NVIDIA H100.
 
 Mirrors the JAX package's layout (which stays the reference):
 
-- ``field``    — Goldilocks GF(p) / GF(p^2) on int64 tensors
-- ``hashes``   — Poseidon (transcript and Merkle hash), batched SHA-256 and
-                 SHA-512
+- ``field``    — Goldilocks GF(p) / GF(p^2) on int64 tensors; GF(2^255 - 19)
+                 and the scalars mod L as 16-bit limbs
+- ``hashes``   — Poseidon (transcript and Merkle hash), batched SHA-256,
+                 SHA-512 and variable-length Blake2b-256
 - ``ops``      — CUDA kernels (``csrc/``) and their wrappers
 - ``poly``     — NTT / LDE / barycentric evaluation
 - ``stark``    — AIRs, Merkle commitments, FRI, prover/verifier (with the
-                 LogUp range lookups and the RAM multiset)
-- ``circuits`` — the SCALE host codec, size bounds, the public commitments
-                 (authority-set hash, range Merkle roots), Ed25519 constants
+                 LogUp range lookups and the RAM multiset), the statement
+                 bundles, the hint runtime
+- ``circuits`` — the SCALE codec (host and batched), size bounds, the
+                 public commitments, batched Ed25519 verification, the
+                 witness-level header_range and rotate programs, the ABI
+- ``parallel`` — the header-subchain check (one device)
+- ``services`` — the CLI (``python -m vectorx_tpu_torch``), the dummy
+                 programs, the justification store and GRANDPA decoding
 - ``convert``  — carries arrays and proofs to and from the JAX package
 
 Entry points that create tensors take ``device=None`` and resolve it with
@@ -22,7 +28,7 @@ tensors follow their inputs' device.
 
 import torch
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 
 def default_device(device=None) -> torch.device:

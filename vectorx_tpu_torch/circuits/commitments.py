@@ -81,19 +81,16 @@ def _words_to_bytes32(w: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts, dim=-1).reshape(w.shape[:-1] + (32,))
 
 
-def _pad_block_64B(like: torch.Tensor) -> torch.Tensor:
-    """Second block of a 64-byte message: 0x80 marker + bit length 512."""
-    w = torch.zeros(16, dtype=torch.int64, device=like.device)
-    w[0] = 0x80000000
-    w[15] = 512
-    return w
+# The second block of a 64-byte message (0x80 marker, bit length 512) is
+# the same for every message: its schedule is computed once, on the host.
+_PAD_64B_SCHEDULE = s2.schedule([0x80000000] + [0] * 14 + [512])
 
 
 def sha256_pair_words(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """sha256(left || right) on (..., 8)-word inputs -> (..., 8) words."""
     block0 = torch.cat([left, right], dim=-1)
-    block1 = _pad_block_64B(block0).expand(block0.shape)
-    return s2.sha256_blocks(torch.stack([block0, block1], dim=-2))
+    state = s2.compress(s2._h0(block0[..., None, :]), block0)
+    return s2.compress_scheduled(state, _PAD_64B_SCHEDULE)
 
 
 def simple_merkle_root_vec(leaves: torch.Tensor) -> torch.Tensor:

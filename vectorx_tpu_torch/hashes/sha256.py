@@ -39,28 +39,46 @@ _H0 = np.array([
 
 
 
-def _rotr(x, r: int):
-    return ((x >> r) | (x << (32 - r))) & M32
+def _big_sigma(x, r1: int, r2: int, r3: int):
+    """rotr(x, r1) ^ rotr(x, r2) ^ rotr(x, r3): each rotation of a 32-bit
+    word is a shift of the word doubled into 64 bits."""
+    xx = x | (x << 32)
+    return ((xx >> r1) ^ (xx >> r2) ^ (xx >> r3)) & M32
+
+
+def _small_sigma(x, r1: int, r2: int, s: int):
+    """rotr(x, r1) ^ rotr(x, r2) ^ (x >> s)."""
+    xx = x | (x << 32)
+    return ((xx >> r1) ^ (xx >> r2) ^ (x >> s)) & M32
+
+
+def schedule(block) -> list:
+    """The 64 message-schedule words of a block (..., 16) BE words; works
+    on tensors and on a list of Python ints alike."""
+    w = list(block.unbind(-1)) if isinstance(block, torch.Tensor) else list(block)
+    for i in range(16, 64):
+        w.append((w[i - 16] + _small_sigma(w[i - 15], 7, 18, 3) + w[i - 7]
+                  + _small_sigma(w[i - 2], 17, 19, 10)) & M32)
+    return w
+
+
+def compress_scheduled(state: torch.Tensor, w) -> torch.Tensor:
+    """One compression from the 64 schedule words ``w`` (tensors or ints):
+    state (..., 8) -> (..., 8)."""
+    a, b, c, d, e, f, g, h = state.unbind(-1)
+    for i in range(64):
+        ch = g ^ (e & (f ^ g))
+        t1 = h + _big_sigma(e, 6, 11, 25) + ch + int(_K[i]) + w[i]
+        maj = (a & b) ^ (c & (a ^ b))
+        a, b, c, d, e, f, g, h = (
+            (t1 + _big_sigma(a, 2, 13, 22) + maj) & M32, a, b, c,
+            (d + t1) & M32, e, f, g)
+    return (state + torch.stack([a, b, c, d, e, f, g, h], dim=-1)) & M32
 
 
 def compress(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
     """One compression: state (..., 8), block (..., 16) BE words -> (..., 8)."""
-    w = list(block.unbind(-1))
-    for i in range(16, 64):
-        wm15, wm2 = w[i - 15], w[i - 2]
-        s0 = _rotr(wm15, 7) ^ _rotr(wm15, 18) ^ (wm15 >> 3)
-        s1 = _rotr(wm2, 17) ^ _rotr(wm2, 19) ^ (wm2 >> 10)
-        w.append((w[i - 16] + s0 + w[i - 7] + s1) & M32)
-    a, b, c, d, e, f, g, h = state.unbind(-1)
-    for i in range(64):
-        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ ((e ^ M32) & g)
-        t1 = h + s1 + ch + int(_K[i]) + w[i]
-        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
-        a, b, c, d, e, f, g, h = ((t1 + s0 + maj) & M32, a, b, c,
-                                  (d + t1) & M32, e, f, g)
-    return (state + torch.stack([a, b, c, d, e, f, g, h], dim=-1)) & M32
+    return compress_scheduled(state, schedule(block))
 
 
 def _h0(blocks: torch.Tensor) -> torch.Tensor:

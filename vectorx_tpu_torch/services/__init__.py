@@ -1,0 +1,1 @@
+"""services layer of vectorx_tpu_torch (see the package docstring)."""

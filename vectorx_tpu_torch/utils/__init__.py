@@ -1,0 +1,1 @@
+"""host utilities of vectorx_tpu_torch (see the package docstring)."""
