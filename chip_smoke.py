@@ -40,34 +40,58 @@ Phases, a few lines each; any failure raises (non-zero exit, no final line):
                 warm prove with the per-phase split, peak device memory,
                 verify, a tampered proof rejected, kernel launches
   8. bundle-header-range — prove_header_range and verify_header_range at
-                production width: 4 chained 1990-byte headers
+                production width: 2 chained 1990-byte headers
                 (HeaderAir(16)), 256-leaf range trees, the 300-key chain,
-                one Ed25519 and one SHA-512 shard of 32 signers; outputs
-                against hashlib, forged claims refused, a serialization
-                round trip verified again; seconds by kind of sub-proof
+                one Ed25519 and one SHA-512 shard of 32 signers; a
+                serialization round trip, then the verify of what came
+                back: outputs against hashlib, forged claims refused;
+                seconds by kind of sub-proof
   9. bundle-rotate — prove_rotate and verify_rotate: an epoch-end header
                 scheduling 300 new keys (RotateHeaderAir(128), 16384 x
                 803), the two 300-key chains, 32 signers; the same checks
- 10. cli       — the CLI, python -m vectorx_tpu_torch, on fixture
+ 10. recursion-small — FibonacciAir(8) recursed at rate 1, 2 queries:
+                prove_recursive plain and streamed, a two-child reduce with
+                a link and three exposed publics, map_reduce_prove over two
+                shards (verify_aggregate), and the two-level case (the
+                level-1 outer proof recursed, the level-2 machine proved
+                and verified); every outer proof verified against the
+                verifier's claim-shape rebuild, a tampered claim refused
+ 11. reduce-streamed — scripts/prove_reduce_streamed.py at production
+                soundness: two PoseidonChainAir proofs (inner rate 4, 21
+                queries, pow 16) linked A.out == B.in, reduced through the
+                streamed recorder into one outer proof (rate 2, 42 queries,
+                pow 16) of 2^19 rows, K = 756, 795 + 277 constant columns
+                (the JAX package's shape); verified against reduce_air_for,
+                the claim A.in ‖ B.out checked, a tampered claim refused;
+                record, constants, witness, per-phase prove and verify
+                seconds and peak memory
+ 12. cli       — the CLI, python -m vectorx_tpu_torch, on fixture
                 directories written under build/chip_smoke_cli/, each run
                 a process of its own: the witness-level header_range at
                 production width (180 chained 1990-byte headers in 256
                 slots of 35,840 bytes, 300 authorities with 240 signed;
                 output against the host's) alone, and in process stage by
                 stage; then side by side: a wrong authority-set hash, a
-                broken link and 200 of 300 signed (each must exit non-zero),
-                rotate with 300 and with 120 new keys (output against the
-                host's authority_set_hash), the --stark route on 2 headers
-                and 4 authorities (its process reports its kernel launches;
-                the bundle file verifies again here) and build of each
+                broken link and 200 of 300 signed, at 60 headers (each must
+                exit non-zero), rotate with 300 and with 120 new keys
+                (output against the host's authority_set_hash), the --stark
+                route on 2 headers and 4 authorities (its process reports
+                its kernel launches; the bundle file verifies again here),
+                the same with --procs 2 --checkpoint (its header proofs in
+                worker processes; the same output), rotate --stark --procs
+                2 on 2 new keys and 4 authorities, and build of each
                 program
-The main paths (6-10) each run with the launch counts set to 0 just before
+The main paths (6-12) each run with the launch counts set to 0 just before
 and read just after (the --stark process counts its own); the
-witness-level programs launch no Poseidon kernel. Then the kernels at the
-main paths' shapes (above), and
- 11. ed25519-small — Ed25519VerifyAir(B=8), one signed lane, proved on the
-                card and, in a process of its own started before those
-                checks, on the CPU: identical payloads.
+witness-level programs launch no Poseidon kernel. Processes of their own
+prove on the CPU what the card proves, at the lowest priority: the
+recursion-small proofs (two processes) beside the main paths, then
+Ed25519VerifyAir(B=8) beside the kernel checks at the main paths' shapes
+(above); then
+ 13. ed25519-small — Ed25519VerifyAir(B=8), one signed lane: identical
+                payloads;
+ 14. recursion-small on the CPU — every recursion-small payload identical,
+                and the same level-2 recording.
 The signatures come from an RFC 8032 signer on Python ints in this file
 (ed25519_sign), so no signing library is needed. Then one JSON line of the kernels, the total seconds, the card's name and
 power limit, and the result line {"ok": true, "device": {...}}.
@@ -107,9 +131,13 @@ from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.hashes import poseidon as ps
 from vectorx_tpu_torch.ops import poseidon_cuda as pc
 from vectorx_tpu_torch.stark import air_header as ah
+from vectorx_tpu_torch.parallel import map_prove
 from vectorx_tpu_torch.stark import (fri, prover, serialize, statements,
                                      verifier)
-from vectorx_tpu_torch.stark.air import Air
+from vectorx_tpu_torch.stark import recursion_air as ra
+from vectorx_tpu_torch.stark.air import Air, FibonacciAir
+from vectorx_tpu_torch.stark.air_poseidon import WIDTH as PWIDTH
+from vectorx_tpu_torch.stark.air_poseidon import PoseidonChainAir
 from vectorx_tpu_torch.stark.air_ed25519 import (Ed25519VerifyAir,
                                                  compress_host, dummy_sig)
 from vectorx_tpu_torch.stark.air_sha256_chain import ChainedSha256Air
@@ -143,7 +171,8 @@ SPONGE_ROWS = (16384, 28)                  # the LDE domain, the query rows
 SPONGE_LARGE = ((314, 524288), (10, 524288), (4, 524288), (368, 262144),
                 (48, 262144), (685, 32768), (82, 32768), (75, 32768),
                 (3336, 32768), (3188, 32768), (30, 32768),  # Ed25519, B = 13
-                (803, 65536), (188, 65536))                 # RotateHeaderAir(128)
+                (803, 65536), (188, 65536),                 # RotateHeaderAir(128)
+                (795, 2097152), (277, 2097152))   # the streamed reduce's outer
 SAMPLE_ROWS = 2048
 FULL_ROWS = 4096
 QUERY_ROWS = 84                  # the opened rows of a 42-query verify
@@ -974,7 +1003,9 @@ def ed25519_small_payload(dev=None):
 
 def ed25519_small_payload_on_cpu():
     """ed25519_small_payload on the CPU with half its cores, for a process
-    of its own (its ~2 minutes then run beside the card's checks)."""
+    of its own (its ~1 minute then runs beside the card's checks, at the
+    lowest priority)."""
+    os.nice(19)
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
     return ed25519_small_payload("cpu")
 
@@ -990,6 +1021,287 @@ def phase_ed25519_small(on_cpu):
     log("ed25519-small", air="Ed25519VerifyAir(B=8)", rows=256,
         payload_bytes=len(on_card), identical=True, cuda_s=f"{cuda_s:.3f}",
         cpu_s=f"{on_cpu[1]:.3f}")
+
+
+# -- recursion and the reduce ---------------------------------------------------
+
+REC_LOG_N = 3                    # the inner FibonacciAir: 8 rows
+REC_CFG = prover.StarkConfig(rate_bits=1, num_queries=2, final_poly_len=4)
+# the level-1 proof that the two-level case recurses: a longer final
+# polynomial keeps the level-2 machine small (tests/test_recursion_air.py)
+REC_CFG1 = prover.StarkConfig(rate_bits=1, num_queries=2, final_poly_len=32)
+REC_LINKS = [(0, 2, 1, 0)]       # res_A == a0_B
+REC_EXPOSE = [(0, 0), (0, 1), (1, 2)]    # the claim: a0_A, b0_A, res_B
+# scripts/prove_reduce_streamed.py: two PoseidonChainAir proofs of 2
+# permutations, inner rate 4 / 21 queries, outer rate 2 / 42 queries
+RED_INNER = prover.StarkConfig(rate_bits=4, num_queries=21, final_poly_len=8,
+                               pow_bits=prover.PRODUCTION_POW_BITS)
+RED_OUTER = prover.StarkConfig(rate_bits=2, num_queries=42, final_poly_len=8,
+                               pow_bits=prover.PRODUCTION_POW_BITS)
+RED_PERMS, RED_LOG_N = 2, 6
+# the outer machine the JAX package's reduce_air_for gives for that claim
+RED_SHAPE = dict(recorded_rows=334454, n_rows=1 << 19, K=756, cols=795,
+                 consts=277)
+
+
+def fib_children(dev):
+    """Two chained FibonacciAir(8) claims proved on `dev`: B starts where A
+    ends. -> [(air, proof, publics, log_n, config)] x 2."""
+    air = FibonacciAir()
+    n = 1 << REC_LOG_N
+    trace_a, pub_a = FibonacciAir.make_trace(n, device=dev)
+    a_last, b_last = (int(v) for v in gl.from_fp(trace_a[:, -1]))
+    trace_b, pub_b = FibonacciAir.make_trace(n, a_last, b_last, device=dev)
+    children = []
+    for trace, pub in ((trace_a, pub_a), (trace_b, pub_b)):
+        pubs = [gl.to_fp(p, dev) for p in pub]
+        children.append((air, prover.prove(air, trace, pubs, REC_CFG), pubs,
+                         REC_LOG_N, REC_CFG))
+    return children, (trace_a, trace_b), (pub_a, pub_b)
+
+
+REC_PROOFS = ("recursive", "streamed", "reduce", "map_reduce", "level1")
+
+
+def recursion_small(dev, names=REC_PROOFS):
+    """The recursion-small proofs named in `names`, on `dev`: -> ({name:
+    payload}, {name: (outer air, proof, publics)}, (the level-2 machine's
+    recording of the level-1 proof and its trace digest, when level1 is
+    named))."""
+    from vectorx_tpu_torch.parallel import aggregate as agg
+    children, traces, pubs = fib_children(dev)
+    air, inner, inner_pubs, _, _ = children[0]
+
+    def map_reduce():
+        node = map_prove.map_reduce_prove(
+            air, list(traces), [[gl.to_fp(p, dev) for p in pu] for pu in pubs],
+            agg.ChainLayout(start=(0,), end=(2,)), REC_CFG, devices=[dev])
+        return node.air, node.proof, node.publics
+
+    make = {
+        "recursive": lambda: ra.prove_recursive(
+            air, inner, inner_pubs, REC_LOG_N, REC_CFG, REC_CFG, device=dev),
+        "streamed": lambda: ra.prove_recursive(
+            air, inner, inner_pubs, REC_LOG_N, REC_CFG, REC_CFG, stream=True,
+            device=dev),
+        "reduce": lambda: ra.prove_reduce(children, REC_LINKS, REC_EXPOSE,
+                                          REC_CFG, device=dev),
+        "map_reduce": map_reduce,
+        "level1": lambda: ra.prove_recursive(
+            air, inner, inner_pubs, REC_LOG_N, REC_CFG, REC_CFG1, device=dev),
+    }
+    out = {name: make[name]() for name in names}
+    level2 = (None, None)
+    if "level1" in out:
+        # the two-level machine's recording of the level-1 proof
+        l1_air, l1_proof, l1_pubs = out["level1"]
+        mb = ra.MachineBuilder()
+        cells = [mb.pin_public(v) for v in l1_pubs]
+        ra.record_stark_verify(mb, l1_air, l1_proof, cells,
+                               l1_air.n_rows.bit_length() - 1, REC_CFG1)
+        l2_trace, _ = ra.RecursionAir(mb).make_trace("cpu")
+        level2 = (mb, hashlib.sha256(gl.to_u64(l2_trace).tobytes())
+                  .hexdigest())
+    payloads = {k: serialize.payload(v[1]) for k, v in out.items()}
+    return payloads, out, level2
+
+
+def recursion_small_on_cpu(names):
+    """recursion_small's payloads (and level-2 digest) for `names` on the
+    CPU, for a process of its own that runs beside the card's paths at the
+    lowest priority, on one thread (the CPU route's Poseidon is numpy on
+    one core): the host work of the card's paths goes first."""
+    os.nice(19)
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    payloads, _, (_, digest) = recursion_small(torch.device("cpu"), names)
+    return payloads, digest, time.perf_counter() - t0
+
+
+def verify_outer(name, vair, proof, pubs, cfg):
+    """The standard verifier on an outer proof against the claim-shape
+    rebuild `vair`; a claim with one public changed is refused."""
+    dev = proof.trace_cap.device
+    log_n = vair.n_rows.bit_length() - 1
+    fp = [gl.to_fp(int(p), dev) for p in pubs]
+    if not verifier.verify(vair, proof, fp, log_n, cfg):
+        raise AssertionError(f"{name}: the outer proof was rejected")
+    bad = list(pubs)
+    bad[-1] = (int(bad[-1]) + 1) % gl.MODULUS
+    if verifier.verify(vair, proof, [gl.to_fp(p, dev) for p in bad], log_n,
+                       cfg):
+        raise AssertionError(f"{name}: a tampered claim was accepted")
+
+
+def phase_recursion_small():
+    """FibonacciAir(8) recursed on the card: prove_recursive, the streamed
+    record, a two-child reduce with links and expose, map_reduce_prove over
+    two shards, and a RecursionAir proof recursed (the two-level case).
+    Each outer proof verifies against the verifier's claim-shape rebuild
+    and refuses a tampered claim; the level-2 machine is proved and
+    verified here. -> (payloads, level-2 trace digest, seconds), which
+    compare_recursion_small holds against the CPU's."""
+    from vectorx_tpu_torch.parallel import aggregate as agg
+    dev = default_device()
+    t0 = time.perf_counter()
+    payloads, out, (mb2, digest2) = recursion_small(dev)
+    cuda_s = time.perf_counter() - t0
+    air = FibonacciAir()
+    shape = [(air, REC_LOG_N, REC_CFG, 3)] * 2
+    for name, vair in (
+            ("recursive", ra.outer_air_for(air, REC_LOG_N, REC_CFG, 3)),
+            ("streamed", ra.outer_air_for(air, REC_LOG_N, REC_CFG, 3,
+                                          stream=True)),
+            ("reduce", ra.reduce_air_for(shape, REC_LINKS, REC_EXPOSE)),
+            ("level1", ra.outer_air_for(air, REC_LOG_N, REC_CFG, 3))):
+        oair, proof, pubs = out[name]
+        if vair.schedule_digest() != oair.schedule_digest():
+            raise AssertionError(f"{name}: the claim-shape rebuild differs")
+        verify_outer(name, vair, proof, pubs,
+                     REC_CFG1 if name == "level1" else REC_CFG)
+    node = agg.Node(*out["map_reduce"], log_n=out["map_reduce"][0].n_rows
+                    .bit_length() - 1, config=REC_CFG,
+                    layout=agg.ChainLayout(start=(0,), end=(1,)))
+    if not agg.verify_aggregate(node, shape, REC_LINKS, [(0, 0), (1, 2)]):
+        raise AssertionError("verify_aggregate rejected map_reduce_prove's node")
+    # the two-level case: the level-2 machine proved and verified here
+    l1_air = out["level1"][0]
+    l2 = ra.RecursionAir(mb2)
+    trace2, pubs2 = l2.make_trace(dev)
+    t1 = time.perf_counter()
+    proof2 = prover.prove(l2, trace2, [gl.to_fp(p, dev) for p in pubs2],
+                          REC_CFG)
+    l2_s = time.perf_counter() - t1
+    vair2 = ra.outer_air_for(l1_air, l1_air.n_rows.bit_length() - 1,
+                             REC_CFG1, len(pubs2))
+    if vair2.schedule_digest() != l2.schedule_digest():
+        raise AssertionError("level 2: the claim-shape rebuild differs")
+    verify_outer("level2", vair2, proof2, pubs2, REC_CFG)
+    log("recursion-small", inner=f"FibonacciAir({1 << REC_LOG_N})",
+        verified_and_tampered_refused="|".join(list(out) + ["level2"]),
+        **{f"{k}_outer": f"{v[0].n_rows}x{v[0].num_cols}+{v[0].num_consts}"
+           for k, v in out.items()},
+        level2=f"{l2.n_rows}x{l2.num_cols}+{l2.num_consts}",
+        level2_prove_s=f"{l2_s:.3f}", cuda_s=f"{cuda_s:.3f}")
+    return payloads, digest2, cuda_s
+
+
+def compare_recursion_small(on_card, on_cpu) -> None:
+    """Every recursion-small payload from the card equals the CPU's (a
+    process of its own proved them), and the level-2 machine records the
+    same trace from either level-1 proof."""
+    payloads, digest2, cuda_s = on_card
+    cpu_payloads, cpu_digest, cpu_s = {}, None, []
+    for part_payloads, part_digest, part_s in on_cpu:
+        cpu_payloads.update(part_payloads)
+        cpu_digest = cpu_digest or part_digest
+        cpu_s.append(f"{part_s:.3f}")
+    if set(cpu_payloads) != set(payloads):
+        raise AssertionError(f"recursion-small: the CPU proved {cpu_payloads}")
+    for name, pay in payloads.items():
+        if pay != cpu_payloads[name]:
+            raise AssertionError(f"recursion-small {name}: payloads differ "
+                                 "between CUDA and CPU")
+    if digest2 != cpu_digest:
+        raise AssertionError("level 2: the recorded traces differ between "
+                             "the card's and the CPU's level-1 proofs")
+    log("recursion-small-cpu", identical="|".join(payloads),
+        level2_trace_equal=True, cuda_s=f"{cuda_s:.3f}",
+        cpu_s_by_process=",".join(cpu_s))
+
+
+def phase_reduce_streamed():
+    """scripts/prove_reduce_streamed.py on the card: two PoseidonChainAir
+    proofs linked A.out == B.in, reduced to ONE outer proof through the
+    streamed recorder (value RAM on) at outer rate 2, 42 queries, pow 16;
+    the outer machine's shape against the JAX package's; verified against
+    the reduce_air_for rebuild; the combined claim A.in ‖ B.out checked and
+    a tampered claim refused. Seconds by stage and peak memory."""
+    dev = default_device()
+    air = PoseidonChainAir()
+    x0 = list(range(1, PWIDTH + 1))
+    tr_a, pub_a, mid = PoseidonChainAir.make_trace(x0, RED_PERMS, dev)
+    tr_b, pub_b, out = PoseidonChainAir.make_trace(mid, RED_PERMS, dev)
+    children, inner_s = [], []
+    for tr, pub in ((tr_a, pub_a), (tr_b, pub_b)):
+        pubs = [gl.to_fp(int(p), dev) for p in pub]
+        t0 = time.perf_counter()
+        proof = prover.prove(air, tr, pubs, RED_INNER)
+        torch.cuda.synchronize()
+        inner_s.append(time.perf_counter() - t0)
+        if not verifier.verify(air, proof, pubs, RED_LOG_N, RED_INNER):
+            raise AssertionError("an inner PoseidonChainAir proof was rejected")
+        children.append((air, proof, list(pub), RED_LOG_N, RED_INNER))
+    links = [(0, PWIDTH + i, 1, i) for i in range(PWIDTH)]
+    expose = ([(0, i) for i in range(PWIDTH)]
+              + [(1, PWIDTH + i) for i in range(PWIDTH)])
+
+    split = {}
+    last = [time.perf_counter()]
+
+    def mark(phase):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[phase] = now - last[0]
+        last[0] = now
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    last[0] = t0
+    oair, oproof, opubs = ra.prove_reduce(children, links, expose, RED_OUTER,
+                                          stream=True, device=dev, timer=mark)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    prove_peak = torch.cuda.max_memory_allocated()
+    if not oair.has_ram:
+        raise AssertionError("stream=True did not engage the value RAM")
+    got = dict(recorded_rows=len(oair.mb.rows), n_rows=oair.n_rows, K=oair.K,
+               cols=oair.num_cols, consts=oair.num_consts)
+    if got != RED_SHAPE:
+        raise AssertionError(f"outer machine {got} != {RED_SHAPE}")
+    olog = oair.n_rows.bit_length() - 1
+    shapes = [(air, RED_LOG_N, RED_INNER, len(pub_a)),
+              (air, RED_LOG_N, RED_INNER, len(pub_b))]
+    t0 = time.perf_counter()
+    vair = ra.reduce_air_for(shapes, links, expose, stream=True)
+    rebuild_s = time.perf_counter() - t0
+    if vair.schedule_digest() != oair.schedule_digest():
+        raise AssertionError("reduce_air_for's schedule differs")
+    del oair
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opubs_fp = [gl.to_fp(int(p), dev) for p in opubs]
+    t0 = time.perf_counter()
+    ok = verifier.verify(vair, oproof, opubs_fp, olog, RED_OUTER)
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    verify_peak = torch.cuda.max_memory_allocated()
+    if not ok:
+        raise AssertionError("the reduce proof was rejected")
+    if ([int(p) for p in opubs[:PWIDTH]] != x0
+            or [int(p) for p in opubs[PWIDTH:2 * PWIDTH]] != list(out)):
+        raise AssertionError("the combined claim is not A.in ‖ B.out")
+    bad = list(opubs)
+    bad[PWIDTH] = (bad[PWIDTH] + 1) % gl.MODULUS
+    if verifier.verify(vair, oproof, [gl.to_fp(p, dev) for p in bad], olog,
+                       RED_OUTER):
+        raise AssertionError("a tampered combined claim was accepted")
+    log("reduce-streamed", children=2, inner=f"PoseidonChainAir({RED_PERMS})",
+        inner_rows=1 << RED_LOG_N, **got,
+        lde=got["n_rows"] << RED_OUTER.rate_bits,
+        inner_prove_s=",".join(f"{s:.3f}" for s in inner_s),
+        rebuild_s=f"{rebuild_s:.3f}", verify_s=f"{verify_s:.3f}",
+        accepted=True, claim="A.in|B.out", tampered_rejected=True,
+        payload_bytes=len(serialize.payload(oproof)))
+    log("reduce-streamed-split", prove_s=f"{total_s:.3f}",
+        **{f"{k}_s": f"{v:.3f}" for k, v in split.items()})
+    log("reduce-streamed-memory", resident_before_bytes=base,
+        prove_peak_bytes=prove_peak, verify_peak_bytes=verify_peak,
+        card=repr(nvidia_smi()))
+    del vair, oproof, children
+    torch.cuda.empty_cache()
 
 
 class KindTimes:
@@ -1033,13 +1345,14 @@ def must_refuse(what: str, fn) -> None:
     raise AssertionError(f"the bundle verifier accepted {what}")
 
 
-BUNDLE_HEADERS = 4               # the depth cut of header_range (256 in use)
+BUNDLE_HEADERS = 2               # the depth cut of header_range (256 in use)
 
 
 def phase_bundle_header_range():
-    """One header_range bundle at production width: 4 chained 1990-byte
+    """One header_range bundle at production width: 2 chained 1990-byte
     headers (HeaderAir(16)), 256-leaf range trees, the 300-key authority
-    chain, one Ed25519 shard and one SHA-512 shard of 32 signing lanes."""
+    chain, one Ed25519 shard and one SHA-512 shard of 32 signing lanes;
+    verified after a serialization round trip."""
     cfg = STATEMENT_CFG
     rng = np.random.default_rng(41)
     trusted_block, set_id, round_ = 4000, 7, 2
@@ -1067,8 +1380,14 @@ def phase_bundle_header_range():
             max_authorities=consts.MAX_AUTHORITY_SET_SIZE, ed_B=ED_B)
         torch.cuda.synchronize()
         prove_s = time.perf_counter() - t0
+        # the serialization round trip, then the verify of what came back
+        blob = statements.serialize_header_range(bundle, cfg)
+        back, back_cfg = statements.deserialize_header_range(blob)
+        if (back_cfg != cfg
+                or statements.serialize_header_range(back, cfg) != blob):
+            raise AssertionError("the header_range round trip differs")
         t0 = time.perf_counter()
-        out = verify(bundle)
+        out = verify(back)
         verify_s = time.perf_counter() - t0
     fields = [scale.decode_header_bytes(h) for h in headers]
     want = (parent,) + tuple(commitments.range_commitments(
@@ -1076,22 +1395,16 @@ def phase_bundle_header_range():
         tree))
     if out != want:
         raise AssertionError("verify_header_range outputs != hashlib's")
-    must_refuse("a wrong target block", lambda: verify(bundle, target_block + 1))
+    must_refuse("a wrong target block", lambda: verify(back, target_block + 1))
     must_refuse("a wrong authority set",
-                lambda: verify(bundle, set_hash=hashlib.sha256(b"x").digest()))
-    blob = statements.serialize_header_range(bundle, cfg)
-    back, back_cfg = statements.deserialize_header_range(blob)
-    t0 = time.perf_counter()
-    if back_cfg != cfg or verify(back) != want:
-        raise AssertionError("the deserialized header_range bundle differs")
+                lambda: verify(back, set_hash=hashlib.sha256(b"x").digest()))
     log("bundle-header-range", headers=BUNDLE_HEADERS,
         header_bytes=HEADER_BYTES, tree_size=tree,
         max_authorities=consts.MAX_AUTHORITY_SET_SIZE, signers=ED_LANES,
         ed_B=ED_B, sig_shards=len(bundle.sig_proofs),
         sha512_shards=len(bundle.sha512_proofs), outputs="hashlib",
-        prove_s=f"{prove_s:.4f}", verify_s=f"{verify_s:.4f}",
-        wrong_target_and_set_rejected=True, bundle_bytes=len(blob),
-        round_trip_verify_s=f"{time.perf_counter() - t0:.4f}")
+        prove_s=f"{prove_s:.4f}", round_trip_verify_s=f"{verify_s:.4f}",
+        wrong_target_and_set_rejected=True, bundle_bytes=len(blob))
     log("bundle-header-range-kinds", **kinds.fields())
     del bundle, back
     torch.cuda.empty_cache()
@@ -1115,7 +1428,8 @@ def epoch_end_header(rng, block_number: int, new_pubkeys) -> bytes:
 def phase_bundle_rotate():
     """One rotate bundle at production width: an epoch-end header that
     schedules 300 new keys (RotateHeaderAir(128)), the two 300-key chains,
-    one Ed25519 and one SHA-512 shard of 32 current signers."""
+    one Ed25519 and one SHA-512 shard of 32 current signers; verified after
+    a serialization round trip."""
     cfg = STATEMENT_CFG
     rng = np.random.default_rng(51)
     block, set_id, round_ = 9000, 8, 3
@@ -1139,25 +1453,24 @@ def phase_bundle_rotate():
             max_chunks=ROTATE_CHUNKS, max_authorities=n_new, ed_B=ED_B)
         torch.cuda.synchronize()
         prove_s = time.perf_counter() - t0
+        # the serialization round trip, then the verify of what came back
+        blob = statements.serialize_rotate(bundle, cfg)
+        back, back_cfg = statements.deserialize_rotate(blob)
+        if back_cfg != cfg or statements.serialize_rotate(back, cfg) != blob:
+            raise AssertionError("the rotate round trip differs")
         t0 = time.perf_counter()
-        out = verify(bundle)
+        out = verify(back)
         verify_s = time.perf_counter() - t0
     want = commitments.authority_set_hash(new_pubs)
     if out != want:
         raise AssertionError("verify_rotate output != the new set's hash")
     must_refuse("a wrong current set",
-                lambda: verify(bundle, hashlib.sha256(b"x").digest()))
-    blob = statements.serialize_rotate(bundle, cfg)
-    back, back_cfg = statements.deserialize_rotate(blob)
-    t0 = time.perf_counter()
-    if back_cfg != cfg or verify(back) != want:
-        raise AssertionError("the deserialized rotate bundle differs")
+                lambda: verify(back, hashlib.sha256(b"x").digest()))
     log("bundle-rotate", header_bytes=len(header),
         window_bytes=len(bundle.window), new_keys=n_new, signers=ED_LANES,
         max_chunks=ROTATE_CHUNKS, ed_B=ED_B, output="authority_set_hash",
-        prove_s=f"{prove_s:.4f}", verify_s=f"{verify_s:.4f}",
-        wrong_set_rejected=True, bundle_bytes=len(blob),
-        round_trip_verify_s=f"{time.perf_counter() - t0:.4f}")
+        prove_s=f"{prove_s:.4f}", round_trip_verify_s=f"{verify_s:.4f}",
+        wrong_set_rejected=True, bundle_bytes=len(blob))
     log("bundle-rotate-kinds", **kinds.fields())
     del bundle, back
     torch.cuda.empty_cache()
@@ -1167,6 +1480,7 @@ def phase_bundle_rotate():
 
 CLI_TRUSTED = 246150             # the golden request's span, 246150 -> 246330
 CLI_HEADERS = 180
+CLI_FORGED_HEADERS = 60          # the refused requests' depth cut
 CLI_SET_ID = 0x75
 CLI_AUTHORITIES = consts.MAX_AUTHORITY_SET_SIZE
 CLI_SIGNED = 240                 # 240 * 3 > 300 * 2; 200 * 3 is not
@@ -1360,10 +1674,12 @@ def witness_split(root: str, headers: dict):
     return split
 
 
-def rotate_fixture(root: str, n_new: int, seed: int):
+def rotate_fixture(root: str, n_new: int, seed: int,
+                   n_authorities: int = CLI_AUTHORITIES,
+                   n_signed: int = CLI_SIGNED):
     """-> (fixture dir, the new keys) of a rotate request: an epoch-end
-    header scheduling n_new keys, justified by 300 current keys with 240
-    signed."""
+    header scheduling n_new keys, justified by n_authorities current keys
+    (300 unless named) with n_signed signing (240)."""
     rng = np.random.default_rng(seed)
     block, set_id = 246400, CLI_SET_ID + 1
     new_pubs = [ed25519_public_key(bytes(rng.integers(0, 256, 32,
@@ -1372,13 +1688,13 @@ def rotate_fixture(root: str, n_new: int, seed: int):
     header = epoch_end_header(rng, block, new_pubs)
     message = scale.encode_precommit_bytes(
         hashlib.blake2b(header, digest_size=32).digest(), block, 3, set_id)
-    pubs, sigs = authority_set(rng, message, CLI_AUTHORITIES, CLI_SIGNED)
+    pubs, sigs = authority_set(rng, message, n_authorities, n_signed)
     write_fixture(root, {block: header},
                   {"last_justified": {str(set_id): block},
                    "authority_set_id": {str(block): set_id},
                    "authorities": {str(block): [p.hex() for p in new_pubs]}},
                   {str(block): justification_record(block, message, pubs, sigs,
-                                                    CLI_SIGNED)},
+                                                    n_signed)},
                   {"input": abi.RotateInput(
                       set_id, commitments.authority_set_hash(pubs)).encode()})
     return root, new_pubs, header
@@ -1395,7 +1711,7 @@ def forged_fixtures(d: str, headers: dict, pubs, sigs, message) -> dict:
     with open(os.path.join(d, "justifications.json")) as f:
         justifications = json.load(f)
     bad = dict(headers)
-    block = CLI_TRUSTED + CLI_HEADERS // 2 + 1
+    block = CLI_TRUSTED + (len(headers) - 1) // 2 + 1
     bad[block] = bytes([bad[block][0] ^ 1]) + bad[block][1:]
     broken = write_fixture(os.path.join(CLI_DIR, "broken_link"), bad, meta,
                            justifications, {})
@@ -1439,8 +1755,13 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
     d, headers, pubs, sigs, message = header_range_fixture(
         os.path.join(CLI_DIR, "header_range"), CLI_HEADERS, CLI_AUTHORITIES,
         CLI_SIGNED, 61)
-    jobs = {k: (v,) for k, v in forged_fixtures(d, headers, pubs, sigs,
-                                                message).items()}
+    # the refused requests at a cut depth: 60 headers (the honest one
+    # keeps 180)
+    fd, f_headers, f_pubs, f_sigs, f_message = header_range_fixture(
+        os.path.join(CLI_DIR, "header_range_forged"), CLI_FORGED_HEADERS,
+        CLI_AUTHORITIES, CLI_SIGNED, 62)
+    jobs = {k: (v,) for k, v in forged_fixtures(fd, f_headers, f_pubs, f_sigs,
+                                                f_message).items()}
     rotations = {}
     for n_new in (consts.MAX_AUTHORITY_SET_SIZE, 120):
         rd, new_pubs, header = rotate_fixture(
@@ -1458,6 +1779,23 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
                       "--fixtures", sd, "--tree-size", "16", "--stark",
                       "--proof", proof, "--output",
                       os.path.join(sd, "output.json")], counts)
+    # the same request with its header proofs in two worker processes,
+    # handed back through a checkpoint; and rotate --stark with --procs 2
+    # (accepted and dropped) on a small request: 2 new keys, 4 current
+    # authorities with 3 signed
+    jobs["stark_procs"] = (["header_range", "prove",
+                            os.path.join(sd, "input.json"), "--fixtures", sd,
+                            "--tree-size", "16", "--stark", "--procs", "2",
+                            "--checkpoint", os.path.join(sd, "checkpoint"),
+                            "--proof", os.path.join(sd, "bundle_procs.bin"),
+                            "--output", os.path.join(sd, "output_procs.json")],)
+    rsd, rot_new, _ = rotate_fixture(os.path.join(CLI_DIR, "rotate_stark"), 2,
+                                     93, 4, 3)
+    jobs["rotate_stark_procs"] = (["rotate", "prove",
+                                   os.path.join(rsd, "input.json"),
+                                   "--fixtures", rsd, "--stark", "--procs",
+                                   "2", "--output",
+                                   os.path.join(rsd, "output.json")],)
     for program in ("header_range", "rotate"):
         jobs[f"build_{program}"] = ([program, "build", "--artifacts",
                                      os.path.join(CLI_DIR, f"build_{program}")],)
@@ -1496,6 +1834,11 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
     want = header_range_want(stark_headers, 16)
     if cli_result("--stark", done["stark"]) != want:
         raise AssertionError("CLI --stark output != the host's")
+    if cli_result("--stark --procs 2", done["stark_procs"]) != want:
+        raise AssertionError("CLI --stark --procs 2 output != --procs 1's")
+    if (cli_result("rotate --stark --procs 2", done["rotate_stark_procs"])
+            != commitments.authority_set_hash(rot_new)):
+        raise AssertionError("CLI rotate --stark --procs 2 output != the host's")
     with open(counts) as f:
         recorded = json.load(f)
     duplex_shapes.update(tuple(x) for x in recorded["duplex"])
@@ -1518,6 +1861,7 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
         authorities=CLI_AUTHORITIES, signed=CLI_SIGNED, output="host",
         command_s=f"{seconds:.3f}", fixtures_s=f"{fixture_s:.1f}",
         refused="wrong_set_hash|broken_link|two_thirds_signed",
+        refused_headers=CLI_FORGED_HEADERS,
         **{f"refused_{k}_s": f"{done[k][2]:.3f}"
            for k in ("wrong_set_hash", "broken_link", "two_thirds_signed")})
     log("cli-header-range-split", **{f"{k}_s": f"{v:.4f}"
@@ -1528,6 +1872,8 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
         config=json.dumps(dataclasses.asdict(cfg)).replace(" ", ""),
         output="host", command_s=f"{done['stark'][2]:.3f}",
         bundle_bytes=len(blob), reverify_s=f"{reverify_s:.3f}",
+        procs2_output="equal", procs2_command_s=f"{done['stark_procs'][2]:.3f}",
+        rotate_procs2_s=f"{done['rotate_stark_procs'][2]:.3f}",
         **{f"build_{p}_s": f"{done[f'build_{p}'][2]:.2f}"
            for p in ("header_range", "rotate")})
     log("cli-side-by-side", processes=len(jobs),
@@ -1671,37 +2017,58 @@ def main() -> int:
     phase_small()
     phase_aux_small()
 
-    # the main paths, each proof with the counts set to 0 just before it
-    duplex_shapes, sponge_shapes = set(), set()
-    record_duplex_shapes(duplex_shapes)
-    record_sponge_shapes(sponge_shapes)
-    by_path = {}
-    for path, run in ([("slice", phase_slice)] + [
-            (name, lambda name=name: phase_statement(name))
-            for name in STATEMENTS] + [
-            ("bundle-header-range", phase_bundle_header_range),
-            ("bundle-rotate", phase_bundle_rotate)]):
-        pc.reset_launches()
-        run()
-        by_path[path] = launches = dict(pc.launches)
-        log(f"{path}-launches-total", **launches, total=sum(launches.values()))
+    # processes of their own prove on the CPU what the card proves, at the
+    # lowest priority: the recursion-small proofs beside the main paths,
+    # the B = 8 Ed25519 proof beside the last checks (the pool stops them
+    # on the way out)
+    with multiprocessing.get_context("spawn").Pool(3) as pool:
+        rec_on_cpu = [pool.apply_async(recursion_small_on_cpu, (names,))
+                      for names in (("recursive", "streamed", "level1"),
+                                    ("reduce", "map_reduce"))]
+        # the main paths, each proof with the counts set to 0 just before it
+        duplex_shapes, sponge_shapes = set(), set()
+        record_duplex_shapes(duplex_shapes)
+        record_sponge_shapes(sponge_shapes)
+        by_path, rec_on_card = {}, []
+        for path, run in ([("slice", phase_slice)] + [
+                (name, lambda name=name: phase_statement(name))
+                for name in STATEMENTS] + [
+                ("bundle-header-range", phase_bundle_header_range),
+                ("bundle-rotate", phase_bundle_rotate),
+                ("recursion-small",
+                 lambda: rec_on_card.append(phase_recursion_small())),
+                ("reduce-streamed", phase_reduce_streamed)]):
+            pc.reset_launches()
+            t0 = time.perf_counter()
+            run()
+            by_path[path] = launches = dict(pc.launches)
+            log(f"{path}-launches-total", **launches,
+                total=sum(launches.values()),
+                seconds=f"{time.perf_counter() - t0:.1f}")
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"the {path} path skipped a kernel: "
+                                     f"{launches}")
+        # the CLI: the witness-level programs (no Poseidon kernel on their
+        # path) and the --stark route, whose process reports its launches
+        t0 = time.perf_counter()
+        by_path["cli-stark"] = launches = phase_cli(duplex_shapes,
+                                                    sponge_shapes)
+        log("cli-stark-launches-total", **launches,
+            total=sum(launches.values()),
+            cli_seconds=f"{time.perf_counter() - t0:.1f}")
         if min(launches.values()) <= 0:
-            raise AssertionError(f"the {path} path skipped a kernel: {launches}")
-    # the CLI: the witness-level programs (no Poseidon kernel on their
-    # path) and the --stark route, whose process reports its launches
-    by_path["cli-stark"] = launches = phase_cli(duplex_shapes, sponge_shapes)
-    log("cli-stark-launches-total", **launches, total=sum(launches.values()))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"the cli-stark path skipped a kernel: {launches}")
-    # the kernels at the main paths' shapes, and the B = 8 Ed25519 proof on
-    # the card against the CPU's, which a process of its own proves
-    # meanwhile (the pool stops it on the way out)
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
-        on_cpu = pool.apply_async(ed25519_small_payload_on_cpu)
+            raise AssertionError(f"the cli-stark path skipped a kernel: "
+                                 f"{launches}")
+        # the kernels at the main paths' shapes
+        ed_on_cpu = pool.apply_async(ed25519_small_payload_on_cpu)
+        t0 = time.perf_counter()
         shape_times = check_sponge_shapes(dev, gl.MODULUS, sm_mhz,
                                           sponge_shapes)
         check_duplex_shapes(np.random.default_rng(17), dev, duplex_shapes)
-        phase_ed25519_small(on_cpu.get())
+        log("shape-checks", seconds=f"{time.perf_counter() - t0:.1f}")
+        phase_ed25519_small(ed_on_cpu.get())
+        compare_recursion_small(rec_on_card[0],
+                                [r.get() for r in rec_on_cpu])
     stats["duplex"]["max_abs_err"] = max_abs_err["duplex"]
     stats["sponge_rows"].update(
         max_abs_err=max_abs_err["sponge_rows"],

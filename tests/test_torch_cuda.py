@@ -1,7 +1,8 @@
 """The port on the card: the CUDA Poseidon kernels (permute, duplex,
-sponge_rows) against their plain versions, proves through them, and the
-production Ed25519 shard (B = 13, 32 signed lanes: the witness on the card
-equal to the CPU's, one proof verified and a tampered one rejected).
+sponge_rows) against their plain versions, proves through them (the
+recursion machine's among them), and the production Ed25519 shard (B = 13,
+32 signed lanes: the witness on the card equal to the CPU's, one proof
+verified and a tampered one rejected).
 
 Every test here is marked ``cuda`` and skips without a card (a CUDA kernel
 has no CPU mode). The file imports neither JAX nor the JAX package, so it
@@ -217,6 +218,22 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def test_recursion_small_same_on_card_and_cpu(card):
+    """chip_smoke.py's recursion-small proofs (FibonacciAir(8) recursed:
+    prove_recursive plain and streamed, a two-child reduce with links and
+    expose, map_reduce_prove over two shards, the level-1 proof of the
+    two-level case) on the card and on the CPU: identical payloads, and the
+    same level-2 recording."""
+    smoke = _chip_smoke()
+    on_card, _, (_, digest_card) = smoke.recursion_small(card)
+    on_cpu, _, (_, digest_cpu) = smoke.recursion_small(torch.device("cpu"))
+    assert list(on_card) == ["recursive", "streamed", "reduce", "map_reduce",
+                             "level1"]
+    for name, payload in on_card.items():
+        assert payload == on_cpu[name], name
+    assert digest_card == digest_cpu
 
 
 @pytest.fixture(scope="module")

@@ -15,7 +15,7 @@ target block, a wrong authority set, a forged Merkle leaf and an unsigned
 majority raise VerificationError; the serialization round trip. Also the
 checkpoint store (a second prove with the same directory reads every
 sub-proof back), the precommit codec against the JAX package's, the
-arguments that wait for parallel/, and the test signer of chip_smoke.py
+``procs`` and ``device`` arguments, and the test signer of chip_smoke.py
 against cryptography's.
 
 No JAX bundle is proved here: payload parity with the JAX package is held
@@ -197,11 +197,20 @@ def test_checkpoint_key_equals_reference():
 
 
 def test_parallel_arguments_wait_for_parallel(setup):
-    args, kwargs = setup["args"], dict(setup["kwargs"], checkpoint=None)
+    """procs > 1 sends the header proofs to worker processes, which hand
+    them back through the checkpoint (here the fixture's, which holds every
+    one: the workers find them and the bundle is the fixture's); without a
+    checkpoint it refuses, as the JAX package does. A list of devices
+    still waits for the collective layer of parallel/."""
+    args, kwargs = setup["args"], setup["kwargs"]
+    again = st.prove_header_range(*args, **dict(kwargs, procs=2))
+    assert (st.serialize_header_range(again, CFG)
+            == st.serialize_header_range(setup["bundle"], CFG))
+    no_ckpt = dict(kwargs, checkpoint=None)
+    with pytest.raises(AssertionError, match="checkpoint"):
+        st.prove_header_range(*args, **dict(no_ckpt, procs=2))
     with pytest.raises(NotImplementedError, match="parallel/"):
-        st.prove_header_range(*args, **dict(kwargs, procs=2))
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        st.prove_header_range(*args, **dict(kwargs, device=["cpu", "cpu"]))
+        st.prove_header_range(*args, **dict(no_ckpt, device=["cpu", "cpu"]))
 
 
 @pytest.mark.parametrize("block", [0, 1, 0xFFFFFFFF])

@@ -71,14 +71,16 @@ HEADER = make_epoch_end_header(EPOCH_END_BLOCK, NEW_PUBS)
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
     digest = hashlib.blake2b(HEADER, digest_size=32).digest()
     msg = scale.encode_precommit_bytes(digest, EPOCH_END_BLOCK, ROUND, SET_ID)
     sigs = [k.sign(msg) for k in CUR_KEYS]
+    checkpoint = str(tmp_path_factory.mktemp("rotate_ckpt"))
     bundle = st.prove_rotate(
         EPOCH_END_BLOCK, HEADER, CUR_PUBS, sigs, SET_ID, ROUND, CFG,
-        max_chunks=MAX_CHUNKS, max_authorities=MAX_AUTH, device="cpu")
-    return dict(bundle=bundle, sigs=sigs)
+        max_chunks=MAX_CHUNKS, max_authorities=MAX_AUTH, device="cpu",
+        checkpoint=checkpoint)
+    return dict(bundle=bundle, sigs=sigs, checkpoint=checkpoint)
 
 
 def _verify(bundle, set_hash=None):
@@ -129,10 +131,28 @@ def test_rotate_rejects_wrong_epoch_block(setup):
 
 
 def test_parallel_arguments_wait_for_parallel(setup):
+    """procs: rotate takes it and drops it, as the JAX package does (its
+    map phase is one header): procs=2 gives the procs=1 bundle (its
+    sub-proofs from the fixture's checkpoint). A list of devices still
+    waits for the collective layer of parallel/; header_range with
+    procs=2 and no checkpoint refuses, as the JAX package does."""
+    def prove(**kw):
+        return st.prove_rotate(
+            EPOCH_END_BLOCK, HEADER, CUR_PUBS, setup["sigs"], SET_ID, ROUND,
+            CFG, max_chunks=MAX_CHUNKS, max_authorities=MAX_AUTH, **kw)
+
+    again = prove(device="cpu", procs=2, checkpoint=setup["checkpoint"])
+    assert st.serialize_rotate(again, CFG) == st.serialize_rotate(
+        setup["bundle"], CFG)
+    assert _verify(again) == commitments.authority_set_hash(NEW_PUBS)
     with pytest.raises(NotImplementedError, match="parallel/"):
-        st.prove_rotate(EPOCH_END_BLOCK, HEADER, CUR_PUBS, setup["sigs"],
-                        SET_ID, ROUND, CFG, max_chunks=MAX_CHUNKS,
-                        max_authorities=MAX_AUTH, device="cpu", procs=2)
+        prove(device=["cpu", "cpu"])
+    with pytest.raises(AssertionError, match="checkpoint"):
+        st.prove_header_range(
+            EPOCH_END_BLOCK - 1, EPOCH_END_BLOCK, [HEADER], CUR_PUBS,
+            setup["sigs"], SET_ID, ROUND, CFG, tree_size=2,
+            max_chunks=MAX_CHUNKS, max_authorities=MAX_AUTH, device="cpu",
+            procs=2)
 
 
 # -- RotateHeaderAir and the parser against the JAX package -------------------------

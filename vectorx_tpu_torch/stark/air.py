@@ -86,15 +86,36 @@ class ExtAlgebra:
 
 # -- groups: ring elements stacked along a leading axis ------------------------
 # An extension element is a (re, im) tuple, a base element a tensor; the
-# helpers map over the tuple for the former.
+# helpers map over the tuple for the former. In the recursion machine's
+# ring (recursion_air.XAlgMB) an element is an XCell, a (re_cell, im_cell)
+# tuple of ints, and a group of them is a ``GX`` list.
+
+class GX(list):
+    """A GROUP of scalar machine cells (XCells): the MachineBuilder-ring
+    counterpart of a leading group axis on tensor ring elements. Lives here
+    so AIR constraint helpers can be ring-generic without importing the
+    recursion machinery."""
+
+
+def is_group_cells(e) -> bool:
+    return isinstance(e, GX)
+
 
 def _map(f, e):
     return (f(e[0]), f(e[1])) if isinstance(e, tuple) else f(e)
 
 
 def stack_group(elems):
+    """Stack ring elements along a leading group axis: torch.stack for the
+    tensor rings, a GX list for the machine ring."""
     elems = list(elems)
-    if isinstance(elems[0], tuple):
+    e0 = elems[0]
+    if isinstance(e0, GX):
+        raise TypeError("stack_group over GX groups is not supported")
+    if (isinstance(e0, tuple) and len(e0) == 2
+            and isinstance(e0[0], (int, np.integer))):
+        return GX(elems)
+    if isinstance(e0, tuple):
         return (torch.stack([e[0] for e in elems]),
                 torch.stack([e[1] for e in elems]))
     return torch.stack(elems)
@@ -103,20 +124,34 @@ def stack_group(elems):
 def roll_group(e, k: int):
     """Circular roll along the group axis (element i of the result is
     element i-k of the input)."""
+    if isinstance(e, GX):
+        m = len(e)
+        k %= m
+        return GX(e[m - k:] + e[:m - k])
     return _map(lambda x: torch.roll(x, k, dims=0), e)
 
 
 def slice_group(e, a: int, b: int):
+    if isinstance(e, GX):
+        return GX(list(e)[a:b])
     return _map(lambda x: x[a:b], e)
 
 
 def index_group(e, i: int):
     """Single element of a group (a scalar ring element)."""
+    if isinstance(e, GX):
+        return e[i]
     return _map(lambda x: x[i], e)
 
 
 def sum_group(e, alg=None):
-    """Σ over the group axis -> scalar ring element."""
+    """Σ over the group axis -> scalar ring element. The machine ring
+    needs ``alg`` (cells add through emitted rows)."""
+    if isinstance(e, GX):
+        acc = e[0]
+        for x in e[1:]:
+            acc = alg.add(acc, x)
+        return acc
     return _map(lambda x: gl.sum_mod(x, axis=0), e)
 
 
@@ -194,6 +229,14 @@ class Air:
                 + len(self.last_row(alg, dummy, pubs, dc)))
 
 
+def const_values(cvals) -> np.ndarray:
+    """An AIR's constant columns for ``gl.to_fp``: unsigned arrays as they
+    are (a (k, n) uint64 schedule stays one buffer), anything else as
+    exact Python ints."""
+    arr = np.asarray(cvals)
+    return arr if arr.dtype.kind == "u" else arr.astype(np.object_)
+
+
 def check_constraints(air: Air, trace: gl.Fp, publics) -> bool:
     """Evaluate every constraint directly on the trace domain (no LDE, no
     commitment): transition constraints must vanish on rows 0..N-2,
@@ -203,7 +246,7 @@ def check_constraints(air: Air, trace: gl.Fp, publics) -> bool:
     local = [trace[c] for c in range(air.num_cols)]
     nxt_all = torch.roll(trace, -1, dims=1)
     nxt = [nxt_all[c] for c in range(air.num_cols)]
-    cvals = np.asarray(air.constant_columns(n), dtype=np.object_)
+    cvals = const_values(air.constant_columns(n))
     if cvals.shape[0]:
         cfp = gl.to_fp(cvals, trace.device)
         consts = list(cfp)

@@ -34,7 +34,7 @@ from ..field import ext
 from ..poly import domain as pdom
 from ..poly import ntt as pntt
 from . import fri, merkle
-from .air import Air, BaseVecAlgebra
+from .air import Air, BaseVecAlgebra, const_values
 from .challenger import Challenger
 
 P = gl.MODULUS
@@ -100,6 +100,63 @@ class StarkProof:
     const_paths_b: gl.Fp | None = None
 
 
+# -- working-set bounds ----------------------------------------------------------
+# The large phases (LDE, quotient, ζ openings, DEEP) work on tiles whose size
+# follows from the shapes and the device's free memory: a row window of the
+# LDE domain for the quotient, a block of columns for the others. Field sums
+# are exact, so every tiling gives the same bytes as one whole pass.
+
+#: int64 temporaries per element a tiled phase holds at its peak: estimates
+#: from the torch Goldilocks ops (a product builds ~8)
+_LDE_TEMPS = 16
+_OPEN_TEMPS = 12
+_DEEP_TEMPS = 32
+#: the CPU's working set for a tiled phase
+_CPU_WORK_BYTES = 1 << 30
+
+
+def _work_bytes(device: torch.device) -> int:
+    """Bytes a tiled phase may hold at once: a quarter of the card's free
+    memory (the resident LDEs and trees stay outside it), or a fixed 1 GiB
+    on the CPU."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return max(free // 4, 64 << 20)
+    return _CPU_WORK_BYTES
+
+
+def _col_tile(n_cols: int, n: int, temps: int, device: torch.device) -> int:
+    """Columns of length ``n`` a phase with ``temps`` temporaries per
+    element takes at once (at least 1)."""
+    return max(1, min(n_cols, _work_bytes(device) // (8 * temps * n)))
+
+
+def _row_window(n_lde: int, width: int, kk2: int,
+                device: torch.device) -> int:
+    """LDE rows per window of the quotient's constraint evaluation: a power
+    of two dividing n_lde. A row holds the window of every committed column
+    (trace, constants, aux), the AIR's constraint values and temporaries
+    (~8 per column), and ~64 extension temporaries per LogUp column pair."""
+    per_row = 8 * (8 * width + 64 * kk2 + 4096)
+    rows = max(1, _work_bytes(device) // per_row)
+    b = 1 << min(n_lde.bit_length() - 1, rows.bit_length() - 1)
+    return max(b, min(n_lde, 1024))
+
+
+def lde_cols(cols: gl.Fp, rate: int) -> gl.Fp:
+    """``ntt.coset_lde`` of a (w, n) matrix, a block of columns at a time
+    (the NTT's temporaries are several times its output)."""
+    w, n = cols.shape
+    n_lde = n << rate
+    t = _col_tile(w, n_lde, _LDE_TEMPS, cols.device)
+    if t >= w:
+        return pntt.coset_lde(cols, rate)
+    out = torch.empty((w, n_lde), dtype=cols.dtype, device=cols.device)
+    for c0 in range(0, w, t):
+        out[c0:c0 + t] = pntt.coset_lde(cols[c0:c0 + t], rate)
+    return out
+
+
 # -- Fp2 vector helpers ---------------------------------------------------------
 
 def _alpha_power_array(alpha: ext.Fp2, n: int) -> ext.Fp2:
@@ -162,12 +219,12 @@ def constant_vk(air: Air, log_n: int, config: StarkConfig, device=None):
     cache = air.__dict__.setdefault("_vx_vk", {})
     key = (log_n, config.rate_bits, config.cap_height, str(device))
     if key not in cache:
-        cvals = np.asarray(air.constant_columns(1 << log_n), dtype=np.object_)
+        cvals = const_values(air.constant_columns(1 << log_n))
         if cvals.shape[0] == 0:
             cache[key] = None
         else:
             cfp = gl.to_fp(cvals, device)
-            c_lde = pntt.coset_lde(cfp, config.rate_bits)
+            c_lde = lde_cols(cfp, config.rate_bits)
             tree = merkle.build_cols(c_lde, cap_height=config.cap_height)
             cache[key] = (tree, cfp, c_lde)
     return cache[key]
@@ -394,20 +451,21 @@ def _combine_ext(constraints, alphas_all: ext.Fp2, k0: int, acc: ext.Fp2,
     return acc, k
 
 
-def _aux_constraints(air: Air, blowup: int, trace_lde: gl.Fp, c_lde,
-                     aux_lde: gl.Fp, gamma: ext.Fp2, delta):
-    """The LogUp constraints, then the RAM constraints, over the LDE domain:
-    (every, transition, first, last) lists of ext-valued constraints."""
+def _aux_constraints(air: Air, trace_w: gl.Fp, c_w, aux_w: gl.Fp,
+                     aux_nw: gl.Fp, gamma: ext.Fp2, delta):
+    """The LogUp constraints, then the RAM constraints, over a window of
+    the LDE domain (``*_w`` its rows, ``aux_nw`` the aux rows one trace
+    step on): (every, transition, first, last) lists of ext-valued
+    constraints."""
     lk_cols = air.lookup_range_columns()
     ram_spec = air.ram_multiset()
     lk_e, lk_t, lk_f, lk_l = [], [], [], []
 
     def pair(i):
-        return aux_lde[i], aux_lde[i + 1]
+        return aux_w[i], aux_w[i + 1]
 
     def pair_next(i):
-        return (torch.roll(aux_lde[i], -blowup),
-                torch.roll(aux_lde[i + 1], -blowup))
+        return aux_nw[i], aux_nw[i + 1]
 
     base_r = 0
     if lk_cols:
@@ -415,25 +473,36 @@ def _aux_constraints(air: Air, blowup: int, trace_lde: gl.Fp, c_lde,
         kk2 = len(lk_p) // 2
         base_r = 2 * kk2 + 6
         w_all = ext.from_base(
-            trace_lde[torch.tensor(lk_p, device=trace_lde.device)])
-        t_col = aux_lde[2 * kk2 + 5]
+            trace_w[torch.tensor(lk_p, device=trace_w.device)])
         lk_e, lk_t, lk_f, lk_l = _lookup_constraint_evals(
             gamma,
-            _slice_ext(w_all, slice(0, None, 2)),        # (kk2, N_lde)
+            _slice_ext(w_all, slice(0, None, 2)),        # (kk2, B)
             _slice_ext(w_all, slice(1, None, 2)),
-            (aux_lde[0:2 * kk2:2], aux_lde[1:2 * kk2:2]),
-            pair(2 * kk2), ext.from_base(aux_lde[2 * kk2 + 2]),
+            (aux_w[0:2 * kk2:2], aux_w[1:2 * kk2:2]),
+            pair(2 * kk2), ext.from_base(aux_w[2 * kk2 + 2]),
             pair(2 * kk2 + 3), pair_next(2 * kk2 + 3),
-            ext.from_base(t_col), ext.from_base(torch.roll(t_col, -blowup)))
+            ext.from_base(aux_w[2 * kk2 + 5]),
+            ext.from_base(aux_nw[2 * kk2 + 5]))
     if ram_spec is not None:
         mult_c, ld_c, ad_c, act_c, val_col = ram_spec
         r_e, r_t, r_f, r_l = _ram_constraint_evals(
-            gamma, delta, ext.from_base(c_lde[ad_c]),
-            ext.from_base(c_lde[mult_c]), ext.from_base(c_lde[ld_c]),
-            ext.from_base(c_lde[act_c]), ext.from_base(trace_lde[val_col]),
+            gamma, delta, ext.from_base(c_w[ad_c]),
+            ext.from_base(c_w[mult_c]), ext.from_base(c_w[ld_c]),
+            ext.from_base(c_w[act_c]), ext.from_base(trace_w[val_col]),
             pair(base_r), pair(base_r + 2), pair_next(base_r + 2))
         lk_e, lk_t, lk_f, lk_l = lk_e + r_e, lk_t + r_t, lk_f + r_f, lk_l + r_l
     return lk_e, lk_t, lk_f, lk_l
+
+
+def _window(lde: gl.Fp, s: int, b: int, step: int):
+    """Rows [s, s+b) of an LDE and the rows ``step`` on, wrapping at the
+    end of the domain: views where they lie in one piece."""
+    n_lde = lde.shape[1]
+    here = lde[:, s:s + b]
+    t = s + step
+    if t + b <= n_lde:
+        return here, lde[:, t:t + b]
+    return here, torch.cat([lde[:, t:], lde[:, :t + b - n_lde]], dim=1)
 
 
 def quotient_phase(air: Air, log_n: int, rate: int, trace_lde: gl.Fp,
@@ -443,52 +512,86 @@ def quotient_phase(air: Air, log_n: int, rate: int, trace_lde: gl.Fp,
     """Constraint evaluation over the LDE domain (the AIR's, then the
     LogUp/RAM ones when there is an aux trace), α-combination, vanishing
     division, chunk split and re-evaluation. α order: transition, LogUp/RAM
-    transition, first, LogUp/RAM first, last, LogUp/RAM last, every-row."""
+    transition, first, LogUp/RAM first, last, LogUp/RAM last, every-row.
+
+    The evaluation runs over windows of rows (``_row_window``): a window
+    reads its rows and the rows one trace step on out of the resident LDEs,
+    so the constraints' temporaries are groups × window, not groups ×
+    N_lde. The codeword is the same for every window size."""
     n = 1 << log_n
     n_lde = n << rate
     blowup = 1 << rate
     dev = trace_lde.device
-    alg = BaseVecAlgebra((n_lde,), dev)
-    local = list(trace_lde)
-    nxt = list(torch.roll(trace_lde, -blowup, dims=1))
-    if c_lde is not None:
-        consts = list(c_lde)
-        consts_next = list(torch.roll(c_lde, -blowup, dims=1))
-    else:
-        consts, consts_next = [], []
-    ct = air.transition(alg, local, nxt, publics, consts, consts_next)
-    cf = air.first_row(alg, local, publics, consts)
-    cl = air.last_row(alg, local, publics, consts)
-    if aux_lde is not None:
-        lk_e, lk_t, lk_f, lk_l = _aux_constraints(
-            air, blowup, trace_lde, c_lde, aux_lde, gamma, delta)
-    else:
-        lk_e, lk_t, lk_f, lk_l = [], [], [], []
+    width = (trace_lde.shape[0] + (c_lde.shape[0] if c_lde is not None else 0)
+             + (aux_lde.shape[0] if aux_lde is not None else 0))
+    kk2 = (len(air.lookup_range_columns()) + 1) // 2
+    b = _row_window(n_lde, width, kk2, dev)
+    dom = _domain_arrays(log_n, rate, dev)
+    alphas = None
+    parts = []
+    for s in range(0, n_lde, b):
+        tw, tnw = _window(trace_lde, s, b, blowup)
+        if c_lde is not None:
+            cw, cnw = _window(c_lde, s, b, blowup)
+            consts, consts_next = list(cw), list(cnw)
+        else:
+            cw = None
+            consts, consts_next = [], []
+        alg = BaseVecAlgebra((b,), dev)
+        local = list(tw)
+        ct = air.transition(alg, local, list(tnw), publics, consts,
+                            consts_next)
+        cf = air.first_row(alg, local, publics, consts)
+        cl = air.last_row(alg, local, publics, consts)
+        if aux_lde is not None:
+            aw, anw = _window(aux_lde, s, b, blowup)
+            lk_e, lk_t, lk_f, lk_l = _aux_constraints(
+                air, tw, cw, aw, anw, gamma, delta)
+        else:
+            lk_e, lk_t, lk_f, lk_l = [], [], [], []
+        if alphas is None:
+            n_constraints = sum(_group_size(c) for c in
+                                ct + cf + cl + lk_t + lk_f + lk_l + lk_e)
+            alphas = _alpha_power_array(alpha, n_constraints)
+        k = 0
+        ct_comb, k = _combine(ct, alphas, k, ext.zeros((b,), dev), b)
+        ct_comb, k = _combine_ext(lk_t, alphas, k, ct_comb, b)
+        cf_comb, k = _combine(cf, alphas, k, ext.zeros((b,), dev), b)
+        cf_comb, k = _combine_ext(lk_f, alphas, k, cf_comb, b)
+        cl_comb, k = _combine(cl, alphas, k, ext.zeros((b,), dev), b)
+        cl_comb, k = _combine_ext(lk_l, alphas, k, cl_comb, b)
+        del ct, cf, cl
 
-    n_constraints = sum(_group_size(c)
-                        for c in ct + cf + cl + lk_t + lk_f + lk_l + lk_e)
-    alphas = _alpha_power_array(alpha, n_constraints)
-    k = 0
-    ct_comb, k = _combine(ct, alphas, k, ext.zeros((n_lde,), dev), n_lde)
-    ct_comb, k = _combine_ext(lk_t, alphas, k, ct_comb, n_lde)
-    cf_comb, k = _combine(cf, alphas, k, ext.zeros((n_lde,), dev), n_lde)
-    cf_comb, k = _combine_ext(lk_f, alphas, k, cf_comb, n_lde)
-    cl_comb, k = _combine(cl, alphas, k, ext.zeros((n_lde,), dev), n_lde)
-    cl_comb, k = _combine_ext(lk_l, alphas, k, cl_comb, n_lde)
-
-    # quotient: divide by the per-class vanishing polynomials
-    xmg, inv_zh, inv_x_minus_1, inv_x_minus_glast = _domain_arrays(
-        log_n, rate, dev)
-    q_t = ext.mul_base(ext.mul_base(ct_comb, xmg), inv_zh)
-    q_f = ext.mul_base(cf_comb, inv_x_minus_1)
-    q_l = ext.mul_base(cl_comb, inv_x_minus_glast)
-    quotient = ext.add(ext.add(q_t, q_f), q_l)
-    if lk_e:
-        # the every-row class (the inverse definitions): divisor Z_H
-        ce_comb, k = _combine_ext(lk_e, alphas, k, ext.zeros((n_lde,), dev),
-                                  n_lde)
-        quotient = ext.add(quotient, ext.mul_base(ce_comb, inv_zh))
+        # divide by the per-class vanishing polynomials
+        xmg, inv_zh, inv_x_minus_1, inv_x_minus_glast = (
+            d[s:s + b] for d in dom)
+        q_t = ext.mul_base(ext.mul_base(ct_comb, xmg), inv_zh)
+        q_f = ext.mul_base(cf_comb, inv_x_minus_1)
+        q_l = ext.mul_base(cl_comb, inv_x_minus_glast)
+        quotient = ext.add(ext.add(q_t, q_f), q_l)
+        if lk_e:
+            # the every-row class (the inverse definitions): divisor Z_H
+            ce_comb, k = _combine_ext(lk_e, alphas, k, ext.zeros((b,), dev),
+                                      b)
+            quotient = ext.add(quotient, ext.mul_base(ce_comb, inv_zh))
+        parts.append(quotient)
+    quotient = (torch.cat([q[0] for q in parts]),
+                torch.cat([q[1] for q in parts]))
     return quotient_tail(quotient, n, num_quotient_chunks(air), rate, SHIFT)
+
+
+def _open_at(mats: List[gl.Fp], point: ext.Fp2, log_n: int) -> ext.Fp2:
+    """Barycentric values at ``point`` of every row of the (k_i, n)
+    matrices, in order, a block of rows at a time."""
+    n = 1 << log_n
+    out_re, out_im = [], []
+    for m in mats:
+        t = _col_tile(m.shape[0], n, _OPEN_TEMPS, m.device)
+        for r0 in range(0, m.shape[0], t):
+            re, im = pdom.barycentric_eval(m[r0:r0 + t], point, log_n)
+            out_re.append(re)
+            out_im.append(im)
+    return torch.cat(out_re), torch.cat(out_im)
 
 
 # -- prove -----------------------------------------------------------------------------
@@ -522,7 +625,7 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
         n_consts = 0
 
     # -- 1/2: trace LDE + commitment --------------------------------------
-    trace_lde = pntt.coset_lde(trace, rate)            # (num_cols, N_lde)
+    trace_lde = lde_cols(trace, rate)                  # (num_cols, N_lde)
     mark("lde")
     trace_tree = merkle.build_cols(trace_lde, cap_height=config.cap_height)
     challenger.observe(torch.stack(publics))
@@ -544,7 +647,7 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
             delta_r = _pick_ext(challenger.squeeze_ext(1), 0)
         aux_trace = _build_aux(air, trace, lk_cols, gamma, delta_r, n, cfp)
         n_aux = aux_trace.shape[0]
-        aux_lde = pntt.coset_lde(aux_trace, rate)
+        aux_lde = lde_cols(aux_trace, rate)
         aux_tree = merkle.build_cols(aux_lde, cap_height=config.cap_height)
         challenger.observe_digests(aux_tree.cap)
         mark("aux")
@@ -568,9 +671,8 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
     committed = ([trace] + ([aux_trace] if has_aux else [])
                  + ([cfp] if has_consts else []))
     chunk_sub = [c[j][None, :] for c in chunk_evals_sub for j in (0, 1)]
-    opened = pdom.barycentric_eval(torch.cat(committed + chunk_sub),
-                                   zeta, log_n)
-    opened_g = pdom.barycentric_eval(torch.cat(committed), g_zeta, log_n)
+    opened = _open_at(committed + chunk_sub, zeta, log_n)
+    opened_g = _open_at(committed, g_zeta, log_n)
     k_aux, k_const = num_cols, num_cols + n_aux
     k_quot = k_const + n_consts
     trace_zeta = _slice_ext(opened, 0, num_cols)
@@ -648,7 +750,8 @@ def _deep_phase_raw(log_n, rate, trace_lde, aux_lde, const_lde, ch_stack,
     """DEEP composition: β-batched deviation quotients of every opening
     group into one GF(p^2) codeword. β-power term order (mirrored by the
     verifier): trace ζ | trace gζ | aux ζ | aux gζ | const ζ | const gζ |
-    quotient."""
+    quotient. Each group is summed a block of columns at a time
+    (``_col_tile``)."""
     n_lde = 1 << (log_n + rate)
     dev = trace_lde.device
     num_cols = trace_lde.shape[0]
@@ -663,15 +766,25 @@ def _deep_phase_raw(log_n, rate, trace_lde, aux_lde, const_lde, ch_stack,
     n_terms = 2 * num_cols + 2 * n_aux + 2 * n_consts + n_chunks
     betas = _alpha_power_array(beta, n_terms)
 
+    tile = _col_tile(max(num_cols, n_aux, n_consts, 1), n_lde, _DEEP_TEMPS,
+                     dev)
+
     def block(F, lde, z_open, gz_open, k0, ncol):
-        fp2 = ext.from_base(lde)
-        dz = ext.sub(fp2, _ext_col(z_open))
-        F = ext.add(F, _weighted_sum0(ext.mul(dz, _ext_row(inv_xz)),
-                                      _slice_ext(betas, k0, k0 + ncol)))
-        dgz = ext.sub(fp2, _ext_col(gz_open))
-        return ext.add(F, _weighted_sum0(
-            ext.mul(dgz, _ext_row(inv_xgz)),
-            _slice_ext(betas, k0 + ncol, k0 + 2 * ncol)))
+        # a block of columns at a time: untiled, a 3336-column block holds
+        # ~17 (C, N_lde) extension temporaries
+        for c0 in range(0, ncol, tile):
+            c1 = min(ncol, c0 + tile)
+            fp2 = ext.from_base(lde[c0:c1])
+            dz = ext.sub(fp2, _ext_col(_slice_ext(z_open, c0, c1)))
+            F = ext.add(F, _weighted_sum0(ext.mul(dz, _ext_row(inv_xz)),
+                                          _slice_ext(betas, k0 + c0,
+                                                     k0 + c1)))
+            del dz
+            dgz = ext.sub(fp2, _ext_col(_slice_ext(gz_open, c0, c1)))
+            F = ext.add(F, _weighted_sum0(
+                ext.mul(dgz, _ext_row(inv_xgz)),
+                _slice_ext(betas, k0 + ncol + c0, k0 + ncol + c1)))
+        return F
 
     F = block(ext.zeros((n_lde,), dev), trace_lde, trace_zeta, trace_gzeta,
               0, num_cols)

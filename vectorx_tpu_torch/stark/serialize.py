@@ -75,6 +75,14 @@ def serialize_config(config) -> bytes:
                       sort_keys=True).encode()
 
 
+def deserialize_config(data: bytes, cls):
+    """serialize_config's inverse (``cls``: the StarkConfig class)."""
+    blob = json.loads(data.decode())
+    if blob.pop("version") != VERSION:
+        raise ValueError("config version mismatch")
+    return cls(**blob)
+
+
 def empty_proof_like_shapes(air, config, log_n: int):
     """A zero StarkProof with the structure/shapes that ``prover.prove``
     emits for a 2^log_n-row trace — the deserialization template (host

@@ -19,9 +19,12 @@ threshold): all host link checks first (phase A), then every STARK
 schedules the new authority set, and outputs the new set's hash.
 
 Every proof of a bundle runs on one torch device (``device``, the current
-CUDA device when None). Spreading the units over several devices or
-worker processes waits for the port of ``parallel/``: a list of devices
-or ``procs > 1`` raises NotImplementedError.
+CUDA device when None). ``header_range`` with ``procs > 1`` scatters the
+per-header proofs over worker processes on that device
+(parallel/map_prove.prove_headers_procs), which hand them back through
+the checkpoint; ``rotate`` takes ``procs`` and drops it (its map phase is
+one header). Spreading a bundle over a list of devices waits for the
+collective layer of ``parallel/`` and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -61,12 +64,13 @@ def _check(cond, msg):
         raise VerificationError(msg)
 
 
-def _one_device(device, procs: int = 1):
+def _one_device(device):
     """The single torch device a bundle proves on."""
-    if isinstance(device, (list, tuple)) or procs > 1:
+    if isinstance(device, (list, tuple)):
         raise NotImplementedError(
-            "proving a bundle across several devices or processes waits "
-            "for the port of parallel/; pass one device and procs=1")
+            "proving a bundle across several devices waits for the "
+            "collective layer of parallel/ (torch.distributed); pass one "
+            "device")
     return default_device(device)
 
 
@@ -203,8 +207,19 @@ def prove_header_range(
 ) -> HeaderRangeStarkProof:
     n = len(headers)
     assert n == target_block - trusted_block and 0 < n <= tree_size
-    device = _one_device(device, procs)
+    device = _one_device(device)
     cp = Checkpoint(checkpoint)
+
+    if procs > 1:
+        # the map phase over worker processes: they prove the per-header
+        # shards and hand them back through the checkpoint store, so the
+        # loop below hits cp for every header
+        if not checkpoint:
+            raise AssertionError(
+                "procs > 1 needs a checkpoint dir for handoff")
+        from ..parallel.map_prove import prove_headers_procs
+        prove_headers_procs([bytes(h) for h in headers], max_chunks,
+                            config, checkpoint, procs, device=device)
 
     # -- per-header hash+decode proofs -----------------------------------
     air_h = HeaderAir(max_chunks)
@@ -452,9 +467,11 @@ def prove_rotate(
     ed_B: int = 8,
     device=None,
     checkpoint: Optional[str] = None,
-    procs: int = 1,
+    procs: int = 1,                    # accepted for CLI symmetry; the
+                                       # rotate map phase is one header
 ) -> RotateStarkProof:
-    device = _one_device(device, procs)
+    del procs
+    device = _one_device(device)
     cp = Checkpoint(checkpoint)
 
     air_r = RotateHeaderAir(max_chunks)
