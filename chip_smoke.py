@@ -56,24 +56,39 @@ Phases, a few lines each; any failure raises (non-zero exit, no final line):
                 level-1 outer proof recursed, the level-2 machine proved
                 and verified); every outer proof verified against the
                 verifier's claim-shape rebuild, a tampered claim refused
- 11. reduce-streamed — scripts/prove_reduce_streamed.py at production
-                soundness: two PoseidonChainAir proofs (inner rate 4, 21
-                queries, pow 16) linked A.out == B.in, reduced through the
-                streamed recorder into one outer proof (rate 2, 42 queries,
-                pow 16) of 2^19 rows, K = 756, 795 + 277 constant columns
-                (the JAX package's shape); verified against reduce_air_for,
+ 11. reduce-streamed — scripts/prove_reduce_streamed.py with the inner
+                proofs cut from 21 to 15 queries: two PoseidonChainAir
+                proofs (inner rate 4, 15 queries, pow 16) linked A.out ==
+                B.in, reduced through the streamed recorder into one outer
+                proof (rate 2, 42 queries, pow 16) of 2^18 rows, K = 750,
+                789 + 274 constant columns (the JAX package's shape for
+                that claim); verified against reduce_air_for,
                 the claim A.in ‖ B.out checked, a tampered claim refused;
                 record, constants, witness, per-phase prove and verify
                 seconds and peak memory
- 12. cli       — the CLI, python -m vectorx_tpu_torch, on fixture
+ 12. recursion-leaf — scripts/prove_recursion_leaf.py: a real 120-byte
+                header proved through HeaderAir(1) (128 x 799 + 188
+                constant columns) at inner rate 10, 9 queries, pow 16,
+                recorded streamed into one outer machine of 2^19 rows, K =
+                725, 764 + 336 constant columns (the JAX package's claim
+                shape), proved at outer rate 1, 84 queries, pow 16 and
+                verified against the outer_air_for rebuild (same schedule
+                digest); a tampered public refused; seconds by stage and the
+                peak memory of the outer prove and of the verify
+ 13. dsl-small — the DSL's Poseidon chain AIR and the GF(2^255-19) gadgets'
+                fp-ops AIR (tests/test_gadget_fp25519.py's, 256 x 708 with
+                706 looked-up columns) proved and verified on the card; a
+                process of its own proves both on the CPU and refuses
+                their tampered publics, and its payloads must be identical
+ 14. cli       — the CLI, python -m vectorx_tpu_torch, on fixture
                 directories written under build/chip_smoke_cli/, each run
                 a process of its own: the witness-level header_range at
                 production width (180 chained 1990-byte headers in 256
                 slots of 35,840 bytes, 300 authorities with 240 signed;
-                output against the host's) alone, and in process stage by
-                stage; then side by side: a wrong authority-set hash, a
-                broken link and 200 of 300 signed, at 60 headers (each must
-                exit non-zero), rotate with 300 and with 120 new keys
+                output against the host's) alone; then side by side: a
+                wrong authority-set hash, a broken link and 200 of 300
+                signed, at 20 headers (each must exit non-zero), rotate
+                with 300 and with 120 new keys
                 (output against the host's authority_set_hash), the --stark
                 route on 2 headers and 4 authorities (its process reports
                 its kernel launches; the bundle file verifies again here),
@@ -81,16 +96,17 @@ Phases, a few lines each; any failure raises (non-zero exit, no final line):
                 worker processes; the same output), rotate --stark --procs
                 2 on 2 new keys and 4 authorities, and build of each
                 program
-The main paths (6-12) each run with the launch counts set to 0 just before
+The main paths (6-14) each run with the launch counts set to 0 just before
 and read just after (the --stark process counts its own); the
 witness-level programs launch no Poseidon kernel. Processes of their own
 prove on the CPU what the card proves, at the lowest priority: the
-recursion-small proofs (two processes) beside the main paths, then
+recursion-small proofs (two processes) and the dsl-small proofs beside
+the main paths, then
 Ed25519VerifyAir(B=8) beside the kernel checks at the main paths' shapes
 (above); then
- 13. ed25519-small — Ed25519VerifyAir(B=8), one signed lane: identical
+ 15. ed25519-small — Ed25519VerifyAir(B=8), one signed lane: identical
                 payloads;
- 14. recursion-small on the CPU — every recursion-small payload identical,
+ 16. recursion-small and dsl-small on the CPU — every payload identical,
                 and the same level-2 recording.
 The signatures come from an RFC 8032 signer on Python ints in this file
 (ed25519_sign), so no signing library is needed. Then one JSON line of the kernels, the total seconds, the card's name and
@@ -134,8 +150,11 @@ from vectorx_tpu_torch.stark import air_header as ah
 from vectorx_tpu_torch.parallel import map_prove
 from vectorx_tpu_torch.stark import (fri, prover, serialize, statements,
                                      verifier)
+from vectorx_tpu_torch.stark import gadget_fp25519 as gfp
 from vectorx_tpu_torch.stark import recursion_air as ra
+from vectorx_tpu_torch.stark import recursion_leaf as rl
 from vectorx_tpu_torch.stark.air import Air, FibonacciAir
+from vectorx_tpu_torch.stark.air_poseidon_dsl import build_poseidon_chain_air
 from vectorx_tpu_torch.stark.air_poseidon import WIDTH as PWIDTH
 from vectorx_tpu_torch.stark.air_poseidon import PoseidonChainAir
 from vectorx_tpu_torch.stark.air_ed25519 import (Ed25519VerifyAir,
@@ -172,7 +191,9 @@ SPONGE_LARGE = ((314, 524288), (10, 524288), (4, 524288), (368, 262144),
                 (48, 262144), (685, 32768), (82, 32768), (75, 32768),
                 (3336, 32768), (3188, 32768), (30, 32768),  # Ed25519, B = 13
                 (803, 65536), (188, 65536),                 # RotateHeaderAir(128)
-                (795, 2097152), (277, 2097152))   # the streamed reduce's outer
+                (789, 1048576), (274, 1048576),   # the streamed reduce's outer
+                (799, 131072), (188, 131072),     # the leaf's inner HeaderAir(1)
+                (764, 1048576), (336, 1048576))   # the leaf's outer
 SAMPLE_ROWS = 2048
 FULL_ROWS = 4096
 QUERY_ROWS = 84                  # the opened rows of a 42-query verify
@@ -334,25 +355,30 @@ def check_duplex_shapes(rng, dev, shapes) -> None:
     """`duplex` against `duplex_plain` at every shape the main paths'
     transcripts gave it, on seeded data biased to the carry boundaries.
     Every absorb starts from one state on a prefix of one data vector, so a
-    single plain chain, read after each absorbed length, gives them all."""
+    single plain chain, read after each absorbed length, gives them all.
+    The plain chain runs on copies of the inputs on the CPU: a plain
+    permutation of one state is ~5,200 torch operations, each a launch on
+    the card (~40-55 ms a permutation there, ~13 ms on the CPU), and the
+    longest chain has ~1,700."""
     longest = max(m for m, _, _ in shapes)
-    flat = torch.from_numpy(
+    flat_cpu = torch.from_numpy(
         boundary_states(rng, longest // 12 + 2, gl.MODULUS).view(np.int64)
-    ).to(dev).reshape(-1)
-    state0 = flat[:12].contiguous()
-    after, state, done = {}, state0, 0
+    ).reshape(-1)
+    flat = flat_cpu.to(dev)
+    state0, state0_cpu = flat[:12].contiguous(), flat_cpu[:12].contiguous()
+    after, state, done = {}, state0_cpu, 0
     for k in sorted({m // ps.RATE for m, flush, _ in shapes if not flush}):
-        state, _ = ps.duplex_plain(state,
-                                   flat[12 + done * ps.RATE:12 + k * ps.RATE])
+        state, _ = ps.duplex_plain(
+            state, flat_cpu[12 + done * ps.RATE:12 + k * ps.RATE])
         after[k], done = state, k
     for m, flush, n in sorted(shapes):
         data = flat[12:12 + m].contiguous()
-        want = (ps.duplex_plain(state0, data, flush, n) if flush
-                else (after[m // ps.RATE], flat[:0]))
+        want = (ps.duplex_plain(state0_cpu, flat_cpu[12:12 + m], flush, n)
+                if flush else (after[m // ps.RATE], flat_cpu[:0]))
         got = pc.duplex(state0, data, flush, n)
         what = f"duplex len={m} flush={flush} squeeze={n}"
-        must_equal("duplex", got[0], want[0], what + " state")
-        must_equal("duplex", got[1], want[1], what + " output")
+        must_equal("duplex", got[0].cpu(), want[0], what + " state")
+        must_equal("duplex", got[1].cpu(), want[1], what + " output")
     absorbs = sorted({m // 8 for m, flush, _ in shapes if not flush})
     squeezes = sorted({(m, n) for m, flush, n in shapes if flush})
     log("poseidon-duplex-path", bit_equal=True, shapes=len(shapes),
@@ -426,14 +452,39 @@ def record_sponge_shapes(seen: set) -> None:
     pc.sponge_rows = sponge_rows
 
 
+def plain_sponge_widths(blocks):
+    """hash_many_plain of each (rows, width) block, all blocks at once:
+    hash_many_plain's loop (zero padding to a multiple of RATE, one
+    overwrite absorb and one permute_plain per chunk) over every row that
+    still has a chunk to absorb. permute_plain acts on each state alone,
+    so each row's digest is hash_many_plain's, and the blocks cost as
+    many plain permutations as the widest one has chunks, not their sum
+    (a plain permutation is ~5,200 launch-bound torch operations)."""
+    rate = ps.RATE
+    chunks = [-(-b.shape[1] // rate) for b in blocks]
+    rows = torch.cat([torch.nn.functional.pad(b, (0, max(chunks) * rate
+                                                   - b.shape[1]))
+                      for b in blocks])
+    left = torch.cat([torch.full((b.shape[0],), c, device=rows.device)
+                      for b, c in zip(blocks, chunks)])
+    state = torch.zeros((rows.shape[0], ps.WIDTH), dtype=torch.int64,
+                        device=rows.device)
+    for i in range(max(chunks)):
+        live = torch.nonzero(left > i).flatten()
+        state[live] = ps.permute_plain(torch.cat(
+            [rows[live, i * rate:(i + 1) * rate], state[live, rate:]], dim=-1))
+    return list(torch.split(state[:, :ps.DIGEST_WIDTH],
+                            [b.shape[0] for b in blocks]))
+
+
 def check_sponge_shapes(dev, p: int, sm_mhz: float, seen):
     """sponge_rows against hash_many_plain at every shape the main paths
     gave it (`seen`) and at SPONGE_LARGE, each laid out in memory as it was
     (strides and alignment), on seeded values with carry-boundary rows
     first and last: all rows up to FULL_ROWS, a seeded sample of rows
     above. The plain sponge costs a launch-bound permutation per 8 columns
-    whatever the rows, so it runs once per width over the rows of every
-    shape of that width. SPONGE_LARGE's kernel times beside their bounds.
+    whatever the rows, so it runs once over the rows of every shape
+    (plain_sponge_widths). SPONGE_LARGE's kernel times beside their bounds.
     Returns {"WxN": (ms, bound_ms, bound_by)}."""
     gen = torch.Generator(device=dev).manual_seed(13)
     rng = np.random.default_rng(13)
@@ -470,11 +521,13 @@ def check_sponge_shapes(dev, p: int, sm_mhz: float, seen):
                 ms=f"{ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
                 share_of_bound=f"{b_ms / ms:.3f}")
         del flat, rows, got
-    for w, items in sorted(by_width.items()):
-        want = ps.hash_many_plain(torch.cat([x for _, x, _ in items]))
+    widths = sorted(by_width)
+    want = plain_sponge_widths([torch.cat([x for _, x, _ in by_width[w]])
+                                for w in widths])
+    for w, want_w in zip(widths, want):
         start = 0
-        for (n, _, s_n, s_w, offset), x, got in items:
-            must_equal("sponge_rows", got, want[start:start + len(x)],
+        for (n, _, s_n, s_w, offset), x, got in by_width[w]:
+            must_equal("sponge_rows", got, want_w[start:start + len(x)],
                        f"sponge_rows {n}x{w} strides ({s_n}, {s_w}) "
                        f"offset {offset}")
             start += len(x)
@@ -1033,15 +1086,17 @@ REC_CFG1 = prover.StarkConfig(rate_bits=1, num_queries=2, final_poly_len=32)
 REC_LINKS = [(0, 2, 1, 0)]       # res_A == a0_B
 REC_EXPOSE = [(0, 0), (0, 1), (1, 2)]    # the claim: a0_A, b0_A, res_B
 # scripts/prove_reduce_streamed.py: two PoseidonChainAir proofs of 2
-# permutations, inner rate 4 / 21 queries, outer rate 2 / 42 queries
-RED_INNER = prover.StarkConfig(rate_bits=4, num_queries=21, final_poly_len=8,
+# permutations, inner rate 4, outer rate 2 / 42 queries; the inner proofs
+# at 15 queries (the script's 21 give 2^19 rows: a depth cut, so that the
+# leaf fits the run's time)
+RED_INNER = prover.StarkConfig(rate_bits=4, num_queries=15, final_poly_len=8,
                                pow_bits=prover.PRODUCTION_POW_BITS)
 RED_OUTER = prover.StarkConfig(rate_bits=2, num_queries=42, final_poly_len=8,
                                pow_bits=prover.PRODUCTION_POW_BITS)
 RED_PERMS, RED_LOG_N = 2, 6
 # the outer machine the JAX package's reduce_air_for gives for that claim
-RED_SHAPE = dict(recorded_rows=334454, n_rows=1 << 19, K=756, cols=795,
-                 consts=277)
+RED_SHAPE = dict(recorded_rows=247718, n_rows=1 << 18, K=750, cols=789,
+                 consts=274)
 
 
 def fib_children(dev):
@@ -1304,6 +1359,234 @@ def phase_reduce_streamed():
     torch.cuda.empty_cache()
 
 
+# the outer machine the JAX package's outer_air_for gives for the leaf's
+# claim (HeaderAir(1), log_n 7, the leaf's inner config, 89 publics, streamed)
+LEAF_SHAPE = dict(recorded_rows=519571, n_rows=1 << 19, K=725, cols=764,
+                  consts=336)
+
+
+def phase_recursion_leaf():
+    """The JAX package's scripts/prove_recursion_leaf.py on the card: a
+    real 120-byte header proved through HeaderAir(1) at inner rate 10, 9
+    queries, pow 16, recorded streamed into one outer machine (its shape
+    against the JAX package's), proved at outer rate 1, 84 queries, pow
+    16, verified against the claim-shape rebuild (same schedule digest) and
+    refused under a tampered public. Seconds by stage and the peak memory
+    of the outer prove and of the verify."""
+    dev = default_device()
+    split = {}
+    last = [time.perf_counter()]
+
+    def mark(phase):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[phase] = now - last[0]
+        last[0] = now
+        if phase == "witness":           # the outer prove starts here
+            torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.empty_cache()
+    t0 = last[0] = time.perf_counter()
+    leaf = rl.prove_leaf(device=dev, timer=mark)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    prove_peak = torch.cuda.max_memory_allocated()
+    oair = leaf.outer_air
+    if not oair.has_ram:
+        raise AssertionError("the leaf's record did not engage the value RAM")
+    got = dict(recorded_rows=len(oair.mb.rows), n_rows=oair.n_rows, K=oair.K,
+               cols=oair.num_cols, consts=oair.num_consts)
+    if got != LEAF_SHAPE:
+        raise AssertionError(f"outer machine {got} != {LEAF_SHAPE}")
+    if leaf.outer_publics != leaf.inner_publics:
+        raise AssertionError("the leaf's outer publics are not the header's")
+    digest = oair.schedule_digest()
+    del oair, leaf.outer_air
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vair = rl.leaf_verifier_air(device=dev)
+    rebuild_s = time.perf_counter() - t0
+    if vair.schedule_digest() != digest:
+        raise AssertionError("the leaf's claim-shape rebuild differs")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ok = rl.verify_leaf(vair, leaf.outer_proof, leaf.outer_publics)
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    verify_peak = torch.cuda.max_memory_allocated()
+    if not ok:
+        raise AssertionError("the leaf proof was rejected")
+    bad = list(leaf.outer_publics)
+    bad[0] = (bad[0] + 1) % gl.MODULUS
+    if rl.verify_leaf(vair, leaf.outer_proof, bad):
+        raise AssertionError("the leaf proof was accepted under a tampered "
+                             "public")
+    log("recursion-leaf", inner="HeaderAir(1)", inner_rows=128,
+        inner_cols=leaf.inner_air.num_cols, inner_lde=128 << 10, **got,
+        lde=got["n_rows"] << rl.LEAF_OUTER.rate_bits,
+        rebuild_s=f"{rebuild_s:.3f}", verify_s=f"{verify_s:.3f}",
+        accepted=True, tampered_rejected=True,
+        payload_bytes=len(serialize.payload(leaf.outer_proof)))
+    log("recursion-leaf-split", prove_s=f"{total_s:.3f}",
+        **{f"{k}_s": f"{v:.3f}" for k, v in split.items()})
+    log("recursion-leaf-memory", prove_peak_bytes=prove_peak,
+        verify_peak_bytes=verify_peak, card=repr(nvidia_smi()))
+    del vair, leaf
+    torch.cuda.empty_cache()
+
+
+# -- the DSL and the GF(2^255-19) gadgets ---------------------------------------
+
+DSL_CFG = prover.StarkConfig(rate_bits=1, num_queries=2, final_poly_len=4)
+FP_B, FP_L, FP_LOG_N = 8, 32, 8         # tests/test_gadget_fp25519.py's sizes
+FP_CFG = prover.StarkConfig(rate_bits=2, num_queries=6, final_poly_len=4)
+
+
+class Fp25519OpsAir(Air):
+    """tests/test_gadget_fp25519.py's AIR over the port's gadgets. Per
+    row: m = a*b; d = m + a; e = d - b; f = e * D_CONST (all mod p), in
+    8-bit limbs over 256 rows. Publics: [f mod 2^8 of row 0]."""
+
+    num_publics = 1
+    max_constraint_degree = 3
+
+    def __init__(self):
+        alloc = gfp.Allocator()
+        self.a = alloc.take(FP_L)
+        self.b = alloc.take(FP_L)
+        self.mul = gfp.FpMul(alloc, FP_B)
+        self.add = gfp.FpAddSub(alloc, FP_B, +1)
+        self.sub = gfp.FpAddSub(alloc, FP_B, -1)
+        self.cmul = gfp.FpMul(alloc, FP_B, b_const=D_CONST)
+        self.num_cols = alloc.n
+        self._lookups = alloc.lookups
+
+    def lookup_range_columns(self):
+        return self._lookups
+
+    def _row_constraints(self, alg, local):
+        a = [local[i] for i in self.a]
+        b = [local[i] for i in self.b]
+        cs = list(self.mul.constraints(alg, local, a, b))
+        m = self.mul.c_limbs(local)
+        cs += self.add.constraints(alg, local, m, a)
+        d = self.add.d_limbs(local)
+        cs += self.sub.constraints(alg, local, d, b)
+        e = self.sub.d_limbs(local)
+        cs += self.cmul.constraints(alg, local, e)
+        return cs
+
+    def transition(self, alg, local, next_row, publics, consts=(),
+                   consts_next=()):
+        return self._row_constraints(alg, local)
+
+    def first_row(self, alg, local, publics, consts=()):
+        return [alg.sub(local[self.cmul.c[0]], alg.lift(publics[0]))]
+
+    def last_row(self, alg, local, publics, consts=()):
+        return self._row_constraints(alg, local)
+
+    def witness(self, a_vals, b_vals):
+        """-> ((num_cols, 256) exact ints, publics, the f of each row)."""
+        cols = np.zeros((self.num_cols, 1 << FP_LOG_N), dtype=np.object_)
+        outs = []
+        for r in range(1 << FP_LOG_N):
+            a, bb = int(a_vals[r]), int(b_vals[r])
+            for i in range(FP_L):
+                cols[self.a[i], r] = (a >> (FP_B * i)) & 0xFF
+                cols[self.b[i], r] = (bb >> (FP_B * i)) & 0xFF
+            m = self.mul.fill(cols, r, a, bb)
+            d = self.add.fill(cols, r, m, a)
+            e = self.sub.fill(cols, r, d, bb)
+            f = self.cmul.fill(cols, r, e)
+            outs.append(f)
+        return cols, [outs[0] & 0xFF], outs
+
+
+def fp25519_inputs(seed: int = 31):
+    """256 seeded pairs (a, b) of field elements, a first."""
+    rng = np.random.default_rng(seed)
+    draw = [int.from_bytes(rng.bytes(32), "little") % gfp.P25519
+            for _ in range(2 << FP_LOG_N)]
+    return draw[:1 << FP_LOG_N], draw[1 << FP_LOG_N:]
+
+
+DSL_PROOFS = ("poseidon_dsl", "fp25519_ops")
+
+
+def dsl_small(dev, tamper=DSL_PROOFS):
+    """The DSL Poseidon chain AIR on PoseidonChainAir.make_trace(0..11, 1)
+    and the GF(2^255-19) gadgets' fp-ops AIR, proved and verified on `dev`,
+    and for those named in `tamper` a tampered public refused -> ({name:
+    payload}, {name_stage: seconds})."""
+    out, secs = {}, {}
+    air, _ = build_poseidon_chain_air()
+    trace, publics, _ = PoseidonChainAir.make_trace(list(range(12)), 1, dev)
+    fp_air = Fp25519OpsAir()
+    cols, fp_publics, _ = fp_air.witness(*fp25519_inputs())
+    for name, a, tr, pub, log_n, cfg, k in (
+            ("poseidon_dsl", air, trace, publics, 5, DSL_CFG, PWIDTH),
+            ("fp25519_ops", fp_air, gl.to_fp(cols, dev), fp_publics,
+             FP_LOG_N, FP_CFG, 0)):
+        pubs = [gl.to_fp(int(p), dev) for p in pub]
+        t0 = time.perf_counter()
+        proof = prover.prove(a, tr, pubs, cfg)
+        t1 = time.perf_counter()
+        if not verifier.verify(a, proof, pubs, log_n, cfg):
+            raise AssertionError(f"{name}: the proof was rejected")
+        secs[f"{name}_prove"] = t1 - t0
+        secs[f"{name}_verify"] = time.perf_counter() - t1
+        if name in tamper:
+            bad = list(pubs)
+            bad[k] = gl.to_fp((int(pub[k]) + 1) % gl.MODULUS, dev)
+            if verifier.verify(a, proof, bad, log_n, cfg):
+                raise AssertionError(f"{name}: a tampered public was accepted")
+        out[name] = serialize.payload(proof)
+    return out, secs
+
+
+def dsl_small_on_cpu():
+    """dsl_small's payloads on the CPU, for a process of its own at the
+    lowest priority (as recursion_small_on_cpu); the tampered publics of
+    both proofs are refused here."""
+    os.nice(19)
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    payloads, _ = dsl_small(torch.device("cpu"))
+    return payloads, time.perf_counter() - t0
+
+
+def phase_dsl_small():
+    """dsl_small on the card -> (payloads, seconds), which compare_dsl_small
+    holds against the CPU's. The tampered publics are refused in the
+    CPU's process, on the same bytes: a verify at ζ of these AIRs is
+    launch-bound on the card (the fp-ops AIR's ~2.7M torch operations,
+    20–27 s a verify on the card's host)."""
+    t0 = time.perf_counter()
+    on_card, secs = dsl_small(default_device(), tamper=())
+    cuda_s = time.perf_counter() - t0
+    log("dsl-small", proved="|".join(on_card), verified=True,
+        fp25519_cols=Fp25519OpsAir().num_cols,
+        cuda_s=f"{cuda_s:.3f}", **{f"{k}_s": f"{v:.3f}" for k, v in secs.items()})
+    return on_card, cuda_s
+
+
+def compare_dsl_small(on_card, on_cpu) -> None:
+    """Every dsl-small payload from the card equals the CPU's."""
+    (payloads, cuda_s), (cpu_payloads, cpu_s) = on_card, on_cpu
+    if list(cpu_payloads) != list(payloads):
+        raise AssertionError(f"dsl-small: the CPU proved {list(cpu_payloads)}")
+    for name, payload in payloads.items():
+        if payload != cpu_payloads[name]:
+            raise AssertionError(f"dsl-small {name}: payloads differ between "
+                                 "CUDA and CPU")
+    log("dsl-small-cpu", identical="|".join(payloads),
+        tampered_rejected="|".join(payloads),
+        payload_bytes="|".join(str(len(p)) for p in payloads.values()),
+        cuda_s=f"{cuda_s:.3f}", cpu_s=f"{cpu_s:.3f}")
+
+
 class KindTimes:
     """While active: seconds and count of every prove and verify, by AIR
     class (the bundles call prover.prove and verifier.verify per proof)."""
@@ -1480,7 +1763,7 @@ def phase_bundle_rotate():
 
 CLI_TRUSTED = 246150             # the golden request's span, 246150 -> 246330
 CLI_HEADERS = 180
-CLI_FORGED_HEADERS = 60          # the refused requests' depth cut
+CLI_FORGED_HEADERS = 20          # the refused requests' depth cut
 CLI_SET_ID = 0x75
 CLI_AUTHORITIES = consts.MAX_AUTHORITY_SET_SIZE
 CLI_SIGNED = 240                 # 240 * 3 > 300 * 2; 200 * 3 is not
@@ -1624,56 +1907,6 @@ def header_range_want(headers: dict, tree_size: int) -> bytes:
             tree_size))
 
 
-def witness_split(root: str, headers: dict):
-    """One in-process run of the witness-level header_range's stages on the
-    card (a synchronize after each) -> seconds by stage: Blake2b of the
-    slots, the decode and the two range trees, the challenges (SHA-512 and
-    the reduction mod L), the authority-set chain, verify_batch. Then the
-    whole subchain check, untimed."""
-    from vectorx_tpu_torch.circuits import ed25519 as ed
-    from vectorx_tpu_torch.parallel import subchain
-    from vectorx_tpu_torch.services import entrypoint, grandpa
-    from vectorx_tpu_torch.stark.hints import fetch_header_range_witness
-    dev = default_device()
-    split, last = {}, [time.perf_counter()]
-
-    def mark(stage):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        split[stage] = now - last[0]
-        last[0] = now
-
-    source = entrypoint.FixtureSource(root, device=dev)
-    target = max(headers)
-    hdrs, rec = fetch_header_range_witness(source, CLI_TRUSTED, target)
-    buf, sizes = subchain.pack_headers(hdrs, consts.HEADER_RANGE_TREE_SIZE_SMALL,
-                                       consts.MAX_HEADER_SIZE)
-    buf, sizes = torch.from_numpy(buf).to(dev), torch.from_numpy(sizes).to(dev)
-    mark("fetch_and_pack")
-    subchain.hash_headers(buf, sizes)
-    mark("blake2b")
-    decoded = scale.decode_header_vec(buf, sizes)
-    for roots in (decoded.state_root, decoded.data_root):
-        subchain._merkle_root_words(commitments._bytes32_to_words(roots))
-    mark("decode_and_trees")
-    jd = grandpa.to_device_justification(rec, CLI_AUTHORITIES, dev)
-    mark("challenges")
-    commitments.authority_set_hash_vec(jd.pubkeys, jd.num_authorities)
-    mark("authority_chain")
-    ok = ed.verify_batch(jd.pubkeys, jd.signatures[:, :32],
-                         jd.signatures[:, 32:], jd.challenges,
-                         jd.validator_signed)
-    mark("verify_batch")
-    trusted_hash = hashlib.blake2b(headers[CLI_TRUSTED], digest_size=32).digest()
-    sub = subchain.verify_subchain(
-        buf, sizes, target - CLI_TRUSTED,
-        torch.tensor(list(trusted_hash), dtype=torch.uint8, device=dev),
-        CLI_TRUSTED)
-    if not (bool(ok.all()) and bool(sub.links_ok) and bool(sub.blocks_sequential)):
-        raise AssertionError("the in-process witness run rejected the request")
-    return split
-
-
 def rotate_fixture(root: str, n_new: int, seed: int,
                    n_authorities: int = CLI_AUTHORITIES,
                    n_signed: int = CLI_SIGNED):
@@ -1743,8 +1976,7 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
     vectorx_tpu_torch`, on fixture directories, each run a process of its
     own: first the witness-level header_range at production width alone
     (180 chained 1990-byte headers in the 256 slots of 35,840 bytes, 300
-    authorities with 240 signed) and the same request in process, stage by
-    stage; then side by side: the three forged requests (each must exit
+    authorities with 240 signed); then side by side: the three forged requests (each must exit
     non-zero), rotate with 300 new keys and with 120 (whose 12,004-byte
     record window runs past the padded header: the bytes read there are
     255, as in the JAX package), the --stark route on a small request (2
@@ -1755,7 +1987,7 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
     d, headers, pubs, sigs, message = header_range_fixture(
         os.path.join(CLI_DIR, "header_range"), CLI_HEADERS, CLI_AUTHORITIES,
         CLI_SIGNED, 61)
-    # the refused requests at a cut depth: 60 headers (the honest one
+    # the refused requests at a cut depth: 20 headers (the honest one
     # keeps 180)
     fd, f_headers, f_pubs, f_sigs, f_message = header_range_fixture(
         os.path.join(CLI_DIR, "header_range_forged"), CLI_FORGED_HEADERS,
@@ -1806,7 +2038,6 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
                                "--output", os.path.join(d, "output.json")])
     if out != header_range_want(headers, consts.HEADER_RANGE_TREE_SIZE_SMALL):
         raise AssertionError("CLI header_range output != the host's")
-    split = witness_split(d, headers)
 
     t0 = time.perf_counter()
     started = {what: start_cli(*job) for what, job in jobs.items()}
@@ -1864,8 +2095,6 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
         refused_headers=CLI_FORGED_HEADERS,
         **{f"refused_{k}_s": f"{done[k][2]:.3f}"
            for k in ("wrong_set_hash", "broken_link", "two_thirds_signed")})
-    log("cli-header-range-split", **{f"{k}_s": f"{v:.4f}"
-                                     for k, v in split.items()})
     log("cli-rotate", authorities=CLI_AUTHORITIES, signed=CLI_SIGNED,
         output="authority_set_hash", **fields)
     log("cli-stark", headers=2, tree_size=16, authorities=4, signed=3,
@@ -2025,11 +2254,12 @@ def main() -> int:
         rec_on_cpu = [pool.apply_async(recursion_small_on_cpu, (names,))
                       for names in (("recursive", "streamed", "level1"),
                                     ("reduce", "map_reduce"))]
+        dsl_on_cpu = pool.apply_async(dsl_small_on_cpu)
         # the main paths, each proof with the counts set to 0 just before it
         duplex_shapes, sponge_shapes = set(), set()
         record_duplex_shapes(duplex_shapes)
         record_sponge_shapes(sponge_shapes)
-        by_path, rec_on_card = {}, []
+        by_path, rec_on_card, dsl_on_card = {}, [], []
         for path, run in ([("slice", phase_slice)] + [
                 (name, lambda name=name: phase_statement(name))
                 for name in STATEMENTS] + [
@@ -2037,7 +2267,10 @@ def main() -> int:
                 ("bundle-rotate", phase_bundle_rotate),
                 ("recursion-small",
                  lambda: rec_on_card.append(phase_recursion_small())),
-                ("reduce-streamed", phase_reduce_streamed)]):
+                ("reduce-streamed", phase_reduce_streamed),
+                ("recursion-leaf", phase_recursion_leaf),
+                ("dsl-small",
+                 lambda: dsl_on_card.append(phase_dsl_small()))]):
             pc.reset_launches()
             t0 = time.perf_counter()
             run()
@@ -2069,6 +2302,7 @@ def main() -> int:
         phase_ed25519_small(ed_on_cpu.get())
         compare_recursion_small(rec_on_card[0],
                                 [r.get() for r in rec_on_cpu])
+        compare_dsl_small(dsl_on_card[0], dsl_on_cpu.get())
     stats["duplex"]["max_abs_err"] = max_abs_err["duplex"]
     stats["sponge_rows"].update(
         max_abs_err=max_abs_err["sponge_rows"],

@@ -1,8 +1,8 @@
 """The port on the card: the CUDA Poseidon kernels (permute, duplex,
 sponge_rows) against their plain versions, proves through them (the
-recursion machine's among them), and the production Ed25519 shard (B = 13,
-32 signed lanes: the witness on the card equal to the CPU's, one proof
-verified and a tampered one rejected).
+recursion machine's and the DSL's among them), and the production Ed25519
+shard (B = 13, 32 signed lanes: the witness on the card equal to the
+CPU's, one proof verified and a tampered one rejected).
 
 Every test here is marked ``cuda`` and skips without a card (a CUDA kernel
 has no CPU mode). The file imports neither JAX nor the JAX package, so it
@@ -234,6 +234,19 @@ def test_recursion_small_same_on_card_and_cpu(card):
     for name, payload in on_card.items():
         assert payload == on_cpu[name], name
     assert digest_card == digest_cpu
+
+
+def test_dsl_small_same_on_card_and_cpu(card):
+    """chip_smoke.py's dsl-small proofs (the DSL's Poseidon chain AIR and
+    the GF(2^255-19) gadgets' fp-ops AIR) on the card and on the CPU: each
+    verified, identical payloads; the CPU side refuses both tampered
+    publics."""
+    smoke = _chip_smoke()
+    on_card, _ = smoke.dsl_small(card, tamper=())
+    on_cpu, _ = smoke.dsl_small(torch.device("cpu"))
+    assert list(on_card) == list(smoke.DSL_PROOFS)
+    for name, payload in on_card.items():
+        assert payload == on_cpu[name], name
 
 
 @pytest.fixture(scope="module")

@@ -33,7 +33,7 @@ from vectorx_tpu_torch.stark import air_sha256 as sha
 from vectorx_tpu_torch.stark import air_sha256_chain as chain
 from vectorx_tpu_torch.stark import air_sha256_merkle as merkle
 from vectorx_tpu_torch.stark import air_sha512 as a512
-from vectorx_tpu_torch.stark import prover, serialize
+from vectorx_tpu_torch.stark import dsl, prover, serialize
 from vectorx_tpu_torch.stark.air import (BaseVecAlgebra, ExtAlgebra,
                                          FibonacciAir)
 from vectorx_tpu_torch.stark.challenger import Challenger
@@ -110,7 +110,17 @@ ENTRY_POINTS = {
         lambda d: prover.constant_vk(
             CONST_AIR, 7, prover.StarkConfig(rate_bits=1), d),
         lambda r: r[2]),
+    "dsl.TraceWriter.finish": (
+        lambda d: _trace_writer().finish(d), lambda r: r),
 }
+
+
+def _trace_writer():
+    b = dsl.AirBuilder()
+    x = b.u8("x")
+    w = dsl.TraceWriter(b, 4)
+    w.set_uint(x, 0, 7)
+    return w
 
 
 @pytest.fixture

@@ -201,6 +201,25 @@ def test_build_writes_the_reference_artifacts(tmp_path, capsys, program):
     assert got == BUILD_SHA256[program]
 
 
+@pytest.mark.parametrize("program", ["header_range", "rotate"])
+def test_build_warm_proves_each_air_that_has_a_probe(tmp_path, monkeypatch,
+                                                     program):
+    """build --warm proves one probe witness per AIR; RotateHeaderAir has
+    none and is skipped (the JAX package's build raises TypeError there).
+    The proves are recorded, not run: each is a full-size proof."""
+    from vectorx_tpu_torch.stark import prover
+    proved = []
+    monkeypatch.setattr(prover, "prove", lambda air, trace, pubs, cfg:
+                        proved.append((type(air).__name__, trace.device)))
+    manifest = entrypoint.build_program(program, 8, 2, str(tmp_path),
+                                        warm=True, max_authorities=4,
+                                        device="cpu")
+    kinds = {a["air"] for a in manifest["airs"].values()}
+    assert {name for name, _ in proved} == kinds - {"RotateHeaderAir"}
+    assert len(proved) == len(kinds) - (program == "rotate")
+    assert all(dev == torch.device("cpu") for _, dev in proved)
+
+
 def test_without_fixtures_the_live_source_is_refused(fixture_dir):
     d = fixture_dir["dir"]
     with pytest.raises(SystemExit) as err:
