@@ -96,6 +96,18 @@ Phases, a few lines each; any failure raises (non-zero exit, no final line):
                 worker processes; the same output), rotate --stark --procs
                 2 on 2 new keys and 4 authorities, and build of each
                 program
+ 15. service   — the service loop on the card over the [cli-header-range]
+                fixture: the indexer's verify_justification (one 300-lane
+                verify_batch: its record equal to the fixture's, a forged
+                lane dropped, two thirds signed refused), genesis_params
+                and the contract simulator with its mock gateway at the
+                trusted block, the Operator's header_range request (one,
+                80 bytes, the CLI's input), run_program in process (output
+                equal to the CLI's), fulfil and commit, poll_once reading
+                the commitments back (equal to compute_block_range_data's),
+                and the operator's rotate request on a chain one set
+                ahead; seconds by stage ([service-split], the port's
+                PhaseTimer). No Poseidon kernel on its path
 The main paths (6-14) each run with the launch counts set to 0 just before
 and read just after (the --stark process counts its own); the
 witness-level programs launch no Poseidon kernel. Processes of their own
@@ -104,9 +116,9 @@ recursion-small proofs (two processes) and the dsl-small proofs beside
 the main paths, then
 Ed25519VerifyAir(B=8) beside the kernel checks at the main paths' shapes
 (above); then
- 15. ed25519-small — Ed25519VerifyAir(B=8), one signed lane: identical
+ 16. ed25519-small — Ed25519VerifyAir(B=8), one signed lane: identical
                 payloads;
- 16. recursion-small and dsl-small on the CPU — every payload identical,
+ 17. recursion-small and dsl-small on the CPU — every payload identical,
                 and the same level-2 recording.
 The signatures come from an RFC 8032 signer on Python ints in this file
 (ed25519_sign), so no signing library is needed. Then one JSON line of the kernels, the total seconds, the card's name and
@@ -125,6 +137,7 @@ no result line.
 
 from __future__ import annotations
 
+import asyncio
 import concurrent.futures
 import copy
 import dataclasses
@@ -1971,8 +1984,9 @@ def cli_result(what: str, done) -> bytes:
 
 
 def phase_cli(duplex_shapes: set, sponge_shapes: set):
-    """-> launches per kernel of the --stark process, whose duplex and
-    sponge_rows shapes join the main paths' in the two sets. The CLI, `python -m
+    """-> (launches per kernel of the --stark process, whose duplex and
+    sponge_rows shapes join the main paths' in the two sets; the output
+    the [cli-header-range] command printed). The CLI, `python -m
     vectorx_tpu_torch`, on fixture directories, each run a process of its
     own: first the witness-level header_range at production width alone
     (180 chained 1990-byte headers in the 256 slots of 35,840 bytes, 300
@@ -2107,7 +2121,236 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
            for p in ("header_range", "rotate")})
     log("cli-side-by-side", processes=len(jobs),
         seconds=f"{side_by_side_s:.1f}")
-    return recorded["launches"]
+    return recorded["launches"], out
+
+
+class FixtureChain:
+    """The node in the service loop, over a FixtureSource directory: the
+    fetcher surface of avail_rpc.AvailClient (for services/tools.py) and
+    the operator's ChainClient, whose has_justification reads the
+    indexer's store. Every block up to `head` has the set id
+    set_id_of(block) and the fixture's authorities."""
+
+    def __init__(self, source, store, authorities, head: int, set_id_of):
+        self.source, self.store, self.authorities = source, store, authorities
+        self.head, self.set_id_of = head, set_id_of
+
+    async def get_head_block(self):
+        return self.head
+
+    async def get_head_block_number(self):
+        return self.head
+
+    async def get_header_scale(self, block):
+        return self.source.get_header(block)
+
+    async def get_headers_range(self, start, end):
+        return [self.source.get_header(b) for b in range(start, end + 1)]
+
+    async def get_authority_set_id(self, block):
+        return self.set_id_of(block)
+
+    async def get_authorities(self, block):
+        return self.authorities
+
+    async def last_justified_block(self, authority_set_id):
+        return 0                         # the fixture's set is still live
+
+    async def has_justification(self, block):
+        return self.store.get_justification(block) is not None
+
+
+class SimContract:
+    """The operator's ContractClient over contract_sim.VectorXSim."""
+
+    def __init__(self, sim):
+        self.sim = sim
+
+    async def latest_block(self):
+        return self.sim.latest_block
+
+    async def header_range_commitment_tree_size(self):
+        return self.sim.header_range_commitment_tree_size
+
+    async def authority_set_id_to_hash(self, set_id):
+        return self.sim.authority_set_id_to_hash.get(set_id, bytes(32))
+
+    async def block_height_to_header_hash(self, block):
+        return self.sim.block_height_to_header_hash.get(block, bytes(32))
+
+    async def request_header_range(self, inp):
+        self.sim.request_header_range(inp.authority_set_id, inp.target_block)
+        if self.sim.gateway.requests[-1].input != inp.encode():
+            raise AssertionError("the contract built another input than the "
+                                 "operator's")
+        return len(self.sim.gateway.requests)
+
+    async def request_rotate(self, inp):
+        self.sim.request_rotate(inp.authority_set_id)
+        if self.sim.gateway.requests[-1].input != inp.encode():
+            raise AssertionError("the contract built another rotate input")
+        return len(self.sim.gateway.requests)
+
+
+class SimEth:
+    """events.EthClient over the simulator's events: event i is in
+    Ethereum block i + 1, the HeaderRangeCommitmentStored ones as logs."""
+
+    def __init__(self, sim):
+        self.sim = sim
+
+    async def latest_block_number(self):
+        return len(self.sim.events)
+
+    async def get_logs(self, address, topic0, from_block, to_block):
+        from vectorx_tpu_torch.services import events
+        if topic0 != events.EVENT_TOPIC:
+            return []
+        logs = []
+        for block, ev in enumerate(self.sim.events, 1):
+            if ev.name == "HeaderRangeCommitmentStored" and \
+                    from_block <= block <= to_block:
+                a = ev.args
+                logs.append({"data": "0x" + (
+                    a["startBlock"].to_bytes(32, "big")
+                    + a["endBlock"].to_bytes(32, "big") + a["dataCommitment"]
+                    + a["stateCommitment"]
+                    + a["headerRangeCommitmentTreeSize"].to_bytes(32, "big")
+                ).hex()})
+        return logs
+
+
+def phase_service(d: str, cli_out: bytes):
+    """The service loop on the card over the [cli-header-range] fixture
+    (180 headers, 300 authorities with 240 signed): the indexer verifies
+    the target's justification (one 300-lane verify_batch; a forged lane
+    dropped, two thirds signed refused) into its store; genesis_params and
+    VectorXSim with MockProofGateway at the trusted block; the Operator
+    requests the header range; run_program proves it in process; the
+    gateway fulfils it and the contract commits; poll_once reads the
+    commitments back, compute_block_range_data gives the same; a chain one
+    authority set ahead makes the operator request rotate. Seconds by
+    stage from the port's PhaseTimer ([service-split])."""
+    from vectorx_tpu_torch.services import (contract_sim, entrypoint, events,
+                                            indexer, operator, store, tools)
+    from vectorx_tpu_torch.utils.profiling import PhaseTimer
+    dev = default_device()
+    timer = PhaseTimer()
+    source = entrypoint.FixtureSource(d, device=dev)
+    with open(os.path.join(d, "input.json")) as f:
+        inp = abi.HeaderRangeInput.decode(bytes.fromhex(json.load(f)["input"][2:]))
+    target, tree_size = inp.target_block, consts.HEADER_RANGE_TREE_SIZE_SMALL
+    rec = source.get_justification_record(target)
+    block_hash, _, round_, set_id = scale.decode_precommit_bytes(
+        bytes.fromhex(rec.signed_message))
+    pubs = [bytes.fromhex(p) for p in rec.pubkeys]
+    sigs = [bytes.fromhex(s) for s in rec.signatures]
+    signed = [i for i, on in enumerate(rec.validator_signed) if on]
+
+    def verify(lane_sigs):
+        """Every lane present: the unsigned ones with their dummy bytes."""
+        return indexer.verify_justification(indexer.Justification(
+            round_, block_hash, target, set_id, pubs, lane_sigs), pubs,
+            device=dev)
+
+    idx_store = store.InMemoryStore()
+    with timer.phase("indexer", dev):
+        got = verify(sigs)
+    if got != rec:
+        raise AssertionError("the indexer's record != the fixture's")
+    idx_store.add_justification(got)
+    lane = signed[7]
+    forged = list(sigs)
+    forged[lane] = sigs[lane][:40] + bytes([sigs[lane][40] ^ 1]) + sigs[lane][41:]
+    minority = [s if i in signed[:len(pubs) * 2 // 3] else bytes(64)
+                for i, s in enumerate(sigs)]
+    with timer.phase("indexer_refusals", dev):
+        dropped, refused = verify(forged), verify(minority)
+    if (dropped is None or dropped.validator_signed[lane]
+            or sum(dropped.validator_signed) != len(signed) - 1
+            or dropped.signatures[lane] != bytes(64).hex()):
+        raise AssertionError("the indexer kept a forged lane")
+    if refused is not None:
+        raise AssertionError("the indexer stored two thirds signed")
+
+    chain = FixtureChain(source, idx_store, pubs, target, lambda b: set_id)
+    with timer.phase("genesis"):
+        params = asyncio.run(tools.genesis_params(chain, CLI_TRUSTED))
+        gateway = contract_sim.MockProofGateway()
+        sim = contract_sim.VectorXSim.deploy(
+            "guardian", gateway, params["height"],
+            bytes.fromhex(params["header_hash"][2:]), params["authority_set_id"],
+            bytes.fromhex(params["authority_set_hash"][2:]), tree_size=tree_size)
+    if (bytes.fromhex(params["header_hash"][2:]) != inp.trusted_header_hash
+            or bytes.fromhex(params["authority_set_hash"][2:])
+            != inp.authority_set_hash):
+        raise AssertionError(f"genesis_params != the request's trusted state: {params}")
+
+    config = operator.OperatorConfig(update_delay_blocks=180)
+    with timer.phase("request"):
+        asyncio.run(operator.Operator(chain, SimContract(sim), config)
+                    .find_and_request_header_range())
+    if len(gateway.requests) != 1 or len(gateway.requests[0].input) != 80:
+        raise AssertionError(f"the operator requested {gateway.requests}")
+    req = gateway.requests[0]
+    if abi.HeaderRangeInput.decode(req.input) != inp:
+        raise AssertionError("the request != the [cli-header-range] input")
+
+    with timer.phase("prove", dev):
+        out = entrypoint.run_program("header_range", req.input, source,
+                                     tree_size, device=dev)
+    if out != cli_out:
+        raise AssertionError("the in-process output != [cli-header-range]'s")
+
+    with timer.phase("fulfil"):
+        gateway.fulfill_request(req, out)
+    key = abi.range_commitment_key(CLI_TRUSTED, target)
+    if (sim.latest_block != target
+            or sim.block_height_to_header_hash[target] != out[:32]
+            or sim.state_root_commitments[key] != out[32:64]
+            or sim.data_root_commitments[key] != out[64:]
+            or [e.name for e in sim.events[-2:]]
+            != ["HeaderRangeCommitmentStored", "HeadUpdate"]):
+        raise AssertionError("the contract did not commit the range")
+    committed_event = sim.events[-2].name
+
+    with timer.phase("read_back", dev):
+        n_events = asyncio.run(events.poll_once(SimEth(sim), idx_store,
+                                                "0xvectorx", 1))
+        backfill = asyncio.run(tools.compute_block_range_data(
+            chain, CLI_TRUSTED, target, tree_size, dev))
+    if (n_events != 1 or idx_store.get_block_range_data(CLI_TRUSTED, target)
+            != (out[64:], out[32:64])):
+        raise AssertionError("poll_once did not store the commitments")
+    if (backfill["state_root_commitment"] != "0x" + out[32:64].hex()
+            or backfill["data_root_commitment"] != "0x" + out[64:].hex()
+            or backfill["end_header_hash"] != "0x" + out[:32].hex()):
+        raise AssertionError("compute_block_range_data != the commitments")
+
+    ahead = FixtureChain(source, idx_store, pubs, target + 300,
+                         lambda b: set_id + (b > target))
+    with timer.phase("rotate"):
+        asyncio.run(operator.Operator(ahead, SimContract(sim), config)
+                    .find_and_request_rotate())
+    rot = gateway.requests[-1]
+    if (len(gateway.requests) != 2 or rot.function_id != sim.rotate_function_id
+            or rot.input != abi.RotateInput(set_id, inp.authority_set_hash).encode()):
+        raise AssertionError("the operator did not request rotate")
+
+    log("service", stage="indexer", lanes=len(pubs), signed=len(signed),
+        record="equal_to_fixture", forged_lane="dropped",
+        two_thirds_signed="refused")
+    log("service", stage="contract", genesis_height=params["height"],
+        requests=1, input_bytes=len(req.input), target=target,
+        output="equal_to_cli_header_range", committed=f"{CLI_TRUSTED}-{target}",
+        event=committed_event)
+    log("service", stage="read_back", events_stored=n_events,
+        commitments="equal", compute_block_range_data="equal")
+    log("service", stage="rotate", requests=len(gateway.requests),
+        input_bytes=len(rot.input), authority_set_id=set_id)
+    log("service-split", **{f"{k}_s": f"{v:.3f}"
+                            for k, v in timer.totals.items()},
+        total_s=f"{sum(timer.totals.values()):.3f}")
 
 
 def slice_setup():
@@ -2284,14 +2527,18 @@ def main() -> int:
         # the CLI: the witness-level programs (no Poseidon kernel on their
         # path) and the --stark route, whose process reports its launches
         t0 = time.perf_counter()
-        by_path["cli-stark"] = launches = phase_cli(duplex_shapes,
-                                                    sponge_shapes)
+        by_path["cli-stark"], cli_out = phase_cli(duplex_shapes, sponge_shapes)
+        launches = by_path["cli-stark"]
         log("cli-stark-launches-total", **launches,
             total=sum(launches.values()),
             cli_seconds=f"{time.perf_counter() - t0:.1f}")
         if min(launches.values()) <= 0:
             raise AssertionError(f"the cli-stark path skipped a kernel: "
                                  f"{launches}")
+        # the service loop: witness-level, no Poseidon kernel on its path
+        pc.reset_launches()
+        phase_service(os.path.join(CLI_DIR, "header_range"), cli_out)
+        log("service-launches-total", **pc.launches)
         # the kernels at the main paths' shapes
         ed_on_cpu = pool.apply_async(ed25519_small_payload_on_cpu)
         t0 = time.perf_counter()

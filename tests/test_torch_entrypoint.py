@@ -19,8 +19,13 @@ through the port's ``main([...])`` with ``--device cpu``:
   for byte (their SHA-256 below is that of the JAX package's
   ``build_program`` for the same arguments; the ``slow`` test recomputes
   them, as the JAX build takes minutes on a CPU);
-- without ``--fixtures`` the CLI exits with the stated message, without a
-  card and ``--device`` it refuses, and ``--help`` runs.
+- without ``--fixtures`` and ``AVAIL_URL`` the CLI exits with the JAX
+  package's message, without a card and ``--device`` it refuses, and
+  ``--help`` runs;
+- the live source (``AVAIL_URL``) over a fake node (``tests/avail_fake.py``,
+  a small chain: 3 headers, tree size 16, 4 authorities, the target an
+  epoch end) gives the fixtures route's ``header_range`` output, and each
+  of its source methods gives the JAX package's live source's value.
 
 The ``slow`` tests hold the witness routes' JSON against ``python -m
 vectorx_tpu`` (the JAX package compiles its 300-lane verification) and run
@@ -28,6 +33,7 @@ the ``--stark`` route, whose bundle proves ChainedSha256Air(300) at the
 CLI's fixed width.
 """
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -220,12 +226,137 @@ def test_build_warm_proves_each_air_that_has_a_probe(tmp_path, monkeypatch,
     assert all(dev == torch.device("cpu") for _, dev in proved)
 
 
-def test_without_fixtures_the_live_source_is_refused(fixture_dir):
+def test_without_fixtures_the_live_source_is_refused(fixture_dir, monkeypatch):
+    """Without --fixtures and AVAIL_URL both CLIs exit with one message."""
+    from vectorx_tpu.services import entrypoint as jentry
+    monkeypatch.delenv("AVAIL_URL", raising=False)
     d = fixture_dir["dir"]
-    with pytest.raises(SystemExit) as err:
-        entrypoint.main(["header_range", "prove", str(d / "hr.json"),
-                         "--device", "cpu"])
-    assert "live source (AVAIL_URL) is not ported yet" in str(err.value.code)
+    exits = []
+    for main, extra in ((entrypoint.main, ["--device", "cpu"]), (jentry.main, [])):
+        with pytest.raises(SystemExit) as err:
+            main(["header_range", "prove", str(d / "hr.json"), *extra])
+        exits.append(err.value.code)
+    assert exits == ["set AVAIL_URL or pass --fixtures"] * 2
+
+
+# -- the live source (AVAIL_URL) over a fake node --------------------------------
+
+LIVE_TRUSTED, LIVE_HEADERS, LIVE_SET_ID = 5000, 3, 4
+
+
+@pytest.fixture(scope="module")
+def live_chain(tmp_path_factory):
+    """A node's view of a small chain (tests/avail_fake.py): well-formed
+    headers LIVE_TRUSTED..target, the target an epoch end (the set id
+    changes there and its header schedules new keys), 4 authorities with
+    3 signing the target, a finality proof for it; and the same data as a
+    FixtureSource directory."""
+    import avail_fake as af
+    rng = np.random.default_rng(29)
+    target = LIVE_TRUSTED + LIVE_HEADERS
+    keys, pubs = af.make_keys(4, rng)
+    _, new_pubs = af.make_keys(2, rng)
+    headers, parent = {}, rng.bytes(32)
+    for n in range(LIVE_TRUSTED, target + 1):
+        logs = [b"\x06BABE" + scale.encode_compact_u32(48) + rng.bytes(48)]
+        if n == target:
+            logs.insert(0, af.scheduled_change_log(new_pubs))
+        headers[n] = af.header_json(parent, n, rng, logs)
+        parent = hashlib.blake2b(af.encode_header(headers[n]), digest_size=32).digest()
+    record = _record(keys, pubs, parent, target, LIVE_SET_ID, 3)
+    chain = af.FakeAvailChain(
+        headers, lambda n: LIVE_SET_ID + (n >= target),
+        lambda n: pubs if n < target else new_pubs,
+        {target: af.finality_proof(parent, target, 1, [
+            (bytes.fromhex(record["signatures"][i]), pubs[i]) for i in range(3)])})
+
+    d = tmp_path_factory.mktemp("live_fixtures")
+    for n in headers:
+        (d / f"{n}.header").write_text(chain.scale_header(n).hex())
+    (d / "meta.json").write_text(json.dumps({
+        "last_justified": {str(LIVE_SET_ID): target},
+        "authority_set_id": {str(LIVE_TRUSTED): LIVE_SET_ID},
+        "authorities": {str(LIVE_TRUSTED): [p.hex() for p in pubs]}}))
+    (d / "justifications.json").write_text(json.dumps({str(target): record}))
+    inp = HeaderRangeInput(
+        LIVE_TRUSTED, hashlib.blake2b(chain.scale_header(LIVE_TRUSTED),
+                                      digest_size=32).digest(),
+        LIVE_SET_ID, commitments.authority_set_hash(pubs), target)
+    (d / "hr.json").write_text(json.dumps({"input": "0x" + inp.encode().hex()}))
+    fields = [scale.decode_header_bytes(chain.scale_header(n))
+              for n in range(LIVE_TRUSTED + 1, target + 1)]
+    want = parent + b"".join(commitments.range_commitments(
+        [f["state_root"] for f in fields], [f["data_root"] for f in fields], 16))
+    return dict(chain=chain, dir=d, want=want, record=record)
+
+
+def test_live_source_header_range_equals_the_fixtures_route(live_chain, capsys,
+                                                            monkeypatch):
+    """AVAIL_URL with a fake node gives the fixtures route's output; the
+    target's justification comes through grandpa_proveFinality."""
+    import avail_fake as af
+    from vectorx_tpu_torch.services import avail_rpc
+    d = live_chain["dir"]
+    args = ["header_range", "prove", str(d / "hr.json"), "--tree-size", "16",
+            "--device", "cpu", "--output", str(d / "out.json")]
+    fixtures = _port(args + ["--fixtures", str(d)], capsys)
+    monkeypatch.setenv("AVAIL_URL", "ws://avail.test")
+    monkeypatch.delenv("REDIS_URL", raising=False)
+    monkeypatch.setattr(avail_rpc, "AvailClient",
+                        af.client_class(avail_rpc, live_chain["chain"]))
+    assert _port(args, capsys) == fixtures == {
+        "output": "0x" + live_chain["want"].hex(), "ok": True}
+    assert ("grandpa_proveFinality", [LIVE_TRUSTED + LIVE_HEADERS]) in \
+        live_chain["chain"].calls
+
+
+def test_live_source_methods_equal_the_jax_live_source(live_chain, monkeypatch):
+    """Every source method of both packages' live sources under one fake
+    node, the stored justification read from a fake Redis (the JAX
+    package's epoch-end record needs its verify, which compiles for
+    minutes on a CPU). The JAX source asks asyncio for the thread's
+    current loop, so the test sets one."""
+    import asyncio
+
+    import avail_fake as af
+    from vectorx_tpu.services import avail_rpc as javail
+    from vectorx_tpu.services import entrypoint as jentry
+    from vectorx_tpu_torch.services import avail_rpc, store
+    chain, target = live_chain["chain"], LIVE_TRUSTED + LIVE_HEADERS
+    servers = {}
+    monkeypatch.setitem(sys.modules, "redis", af.fake_redis_module(servers))
+    monkeypatch.setenv("AVAIL_URL", "ws://avail.test")
+    monkeypatch.setenv("REDIS_URL", "redis://fake")
+    stored = dict(live_chain["record"], block_number=target - 1)
+    store.RedisStore("redis://fake").add_justification(
+        store.StoredJustification(**stored))
+    for mod in (javail, avail_rpc):
+        monkeypatch.setattr(mod, "AvailClient", af.client_class(mod, chain))
+
+    def every_method(source):
+        return (source.get_header(target - 1),
+                source.get_roots_range(LIVE_TRUSTED, target),
+                source.get_authorities(LIVE_TRUSTED),
+                [source.get_authority_set_id(n) for n in (LIVE_TRUSTED, target)],
+                [source.last_justified_block(s) for s in (LIVE_SET_ID, LIVE_SET_ID + 1)],
+                dataclasses.asdict(source.get_justification_record(target - 1)),
+                source.get_rotate_data(LIVE_SET_ID))
+
+    loop = asyncio.new_event_loop()
+    asyncio.set_event_loop(loop)
+    try:
+        want = every_method(jentry._live_source())
+    finally:
+        asyncio.set_event_loop(None)
+        loop.close()
+    source = entrypoint._live_source("cpu")
+    try:
+        got = every_method(source)
+    finally:
+        source.close()
+    assert got == want
+    assert got[4] == [target, 0] and got[5] == stored
+    assert got[6][:2] == (target, chain.scale_header(target))
 
 
 def test_without_a_card_the_device_must_be_named(fixture_dir, capsys,

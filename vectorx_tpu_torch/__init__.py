@@ -11,13 +11,22 @@ Mirrors the JAX package's layout (which stays the reference):
 - ``poly``     — NTT / LDE / barycentric evaluation
 - ``stark``    — AIRs, Merkle commitments, FRI, prover/verifier (with the
                  LogUp range lookups and the RAM multiset), the statement
-                 bundles, the hint runtime
+                 bundles, the hint runtime, value watching
 - ``circuits`` — the SCALE codec (host and batched), size bounds, the
                  public commitments, batched Ed25519 verification, the
                  witness-level header_range and rotate programs, the ABI
 - ``parallel`` — the header-subchain check (one device)
-- ``services`` — the CLI (``python -m vectorx_tpu_torch``), the dummy
-                 programs, the justification store and GRANDPA decoding
+- ``services`` — the CLI (``python -m vectorx_tpu_torch``; fixtures or
+                 the live Avail node), the dummy programs, the
+                 justification store (in memory, Redis), GRANDPA decoding
+                 and finality proofs, the Avail RPC client, the indexer
+                 (batched signature check on the device), the operator,
+                 the contract model and its gateway, the events indexer
+                 and the operator tools
+- ``utils``    — Keccak-256, xxHash/twox128, PhaseTimer and the
+                 torch.profiler hooks
+- ``runtime``  — the ctypes loader of the native host library
+                 (``native/vxnative.cpp``)
 - ``convert``  — carries arrays and proofs to and from the JAX package
 
 Entry points that create tensors take ``device=None`` and resolve it with

@@ -20,8 +20,10 @@ from __future__ import annotations
 import hashlib
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
+from .. import default_device
 from ..hashes import sha256 as s2
 
 
@@ -125,3 +127,21 @@ def authority_set_hash_vec(pubkeys: torch.Tensor, num_active) -> torch.Tensor:
     for i in range(1, pubkeys.shape[0]):
         h = torch.where(i < num_active, sha256_pair_words(h, pk_words[i]), h)
     return torch.where(num_active > 0, h, torch.zeros_like(h))
+
+
+def range_commitments_on(state_roots: Sequence[bytes],
+                         data_roots: Sequence[bytes], tree_size: int,
+                         device=None) -> tuple:
+    """``range_commitments`` on the current CUDA device unless ``device``
+    names another: both trees as batched SHA-256 levels."""
+    if (tree_size & (tree_size - 1) or len(state_roots) != len(data_roots)
+            or len(state_roots) > tree_size):
+        raise ValueError("need as many state as data roots, at most "
+                         "tree_size, a power of two")
+    leaves = np.zeros((2, tree_size, 32), np.uint8)
+    for tree, roots in zip(leaves, (state_roots, data_roots)):
+        for i, root in enumerate(roots):
+            tree[i] = np.frombuffer(root, np.uint8)
+    words = _bytes32_to_words(torch.from_numpy(leaves).to(default_device(device)))
+    return tuple(bytes(_words_to_bytes32(simple_merkle_root_vec(w)).cpu().numpy())
+                 for w in words)

@@ -16,11 +16,15 @@ Verification equation (cofactorless, as ed25519-dalek's ``verify``):
 Doubling and addition: extended twisted-Edwards coordinates (X:Y:Z:T),
 a = -1 (dbl-2008-hwcd / add-2008-hwcd-3). Every function follows its
 inputs' device; its limbs equal the JAX package's limb for limb.
+
+``verify_host`` is one RFC 8032 verification on Python ints (no
+dependency): the indexer's host route.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import hashlib
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -233,3 +237,74 @@ def compute_challenges(r_list, a_list, msg: bytes, device=None) -> np.ndarray:
     digests = s512.sha512_bytes(msgs, device)
     d = torch.from_numpy(np.stack([np.frombuffer(x, np.uint8) for x in digests]))
     return sc.sc_reduce512(d.to(default_device(device))).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# One signature on the host (exact Python ints)
+# ---------------------------------------------------------------------------
+
+HostPoint = Tuple[int, int, int, int]
+
+
+def _host_add(p: HostPoint, q: HostPoint) -> HostPoint:
+    """Extended-coordinate addition, a = -1 (add-2008-hwcd-3)."""
+    x1, y1, z1, t1 = p
+    x2, y2, z2, t2 = q
+    a = (y1 - x1) * (y2 - x2) % P
+    b = (y1 + x1) * (y2 + x2) % P
+    c = 2 * D_CONST * t1 * t2 % P
+    d = 2 * z1 * z2 % P
+    e, f, g, h = b - a, d - c, d + c, b + a
+    return e * f % P, g * h % P, f * g % P, e * h % P
+
+
+def _host_mul(k: int, pt: HostPoint) -> HostPoint:
+    acc = (0, 1, 1, 0)
+    while k:
+        if k & 1:
+            acc = _host_add(acc, pt)
+        pt = _host_add(pt, pt)
+        k >>= 1
+    return acc
+
+
+def _host_encode(pt: HostPoint) -> bytes:
+    x, y, z, _ = pt
+    zi = pow(z, P - 2, P)
+    x, y = x * zi % P, y * zi % P
+    return (y | ((x & 1) << 255)).to_bytes(32, "little")
+
+
+def _host_decode(raw: bytes) -> Optional[HostPoint]:
+    """RFC 8032 point decoding; None for an encoding of no point."""
+    y = int.from_bytes(raw, "little")
+    sign, y = y >> 255, y & ((1 << 255) - 1)
+    if y >= P:
+        return None
+    u = (y * y - 1) % P
+    v = (D_CONST * y * y + 1) % P
+    x = u * pow(v, 3, P) * pow(u * pow(v, 7, P), (P - 5) // 8, P) % P
+    if v * x * x % P == -u % P:
+        x = x * SQRT_M1 % P
+    if v * x * x % P != u or (x == 0 and sign):
+        return None
+    if x % 2 != sign:
+        x = P - x
+    return x, y, 1, x * y % P
+
+
+def verify_host(pubkey: bytes, signature: bytes, msg: bytes) -> bool:
+    """RFC 8032 Ed25519 verification of one signature: s < L and
+    encode([s]B - [h]A) == R, h = SHA-512(R || A || M) mod L."""
+    if len(pubkey) != 32 or len(signature) != 64:
+        return False
+    a = _host_decode(pubkey)
+    s = int.from_bytes(signature[32:], "little")
+    if a is None or s >= L_ORDER:
+        return False
+    h = int.from_bytes(hashlib.sha512(signature[:32] + pubkey + msg).digest(),
+                       "little") % L_ORDER
+    minus_a = (P - a[0], a[1], a[2], P - a[3])
+    r = _host_add(_host_mul(s, (_BX, _BY, 1, _BX * _BY % P)),
+                  _host_mul(h, minus_a))
+    return _host_encode(r) == signature[:32]

@@ -14,14 +14,18 @@ hex output, as VectorX's function entrypoints do. Programs:
 ``prove`` reads {"input": "0x..."} and writes {"output": "0x...", "ok": true};
 a failed check exits non-zero. Chain data comes from ``--fixtures <dir>``
 (offline snapshots: {block}.header hex files, meta.json,
-justifications.json); the live source (AVAIL_URL) waits for the port of
-the live services. The device programs run on the current CUDA device
-unless ``--device`` names another (``--device cpu`` for the CPU).
+justifications.json) or, without it, from the Avail node at ``AVAIL_URL``
+(``LiveSource``; the stored justifications from the Redis at
+``REDIS_URL`` where one is set). The device programs run on the current
+CUDA device unless ``--device`` names another (``--device cpu`` for the
+CPU).
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import contextlib
 import json
 import os
 import sys
@@ -89,6 +93,77 @@ class FixtureSource:
     def get_rotate_data(self, authority_set_id: int):
         """-> (epoch_end_block, header, start_pos, num_auth, pubkeys) —
         the rotate hint."""
+        from ..circuits.rotate import find_scheduled_change
+        block = self.last_justified_block(authority_set_id)
+        header = self.get_header(block)
+        found = find_scheduled_change(header)
+        if found is None:
+            raise LookupError(f"no ScheduledChange log in header {block}")
+        return (block, header) + found
+
+
+class LiveSource:
+    """Chain data from an Avail node (``avail_rpc.AvailClient`` at
+    ``url``), with the methods of ``FixtureSource``. Justifications come
+    from ``grandpa.JustificationProvider`` over the Redis store at
+    ``REDIS_URL`` (an empty in-memory store without one), verified on
+    ``device``. The source owns its event loop; the hint runtime may call
+    it from worker threads, one call at a time. ``close`` ends the loop."""
+
+    def __init__(self, url: str, device=None):
+        from .avail_rpc import AvailClient
+        self.device = device
+        self._loop = asyncio.new_event_loop()
+        self.client = AvailClient(url)
+        try:
+            self._run(self.client.connect())
+        except BaseException:
+            self._loop.close()
+            raise
+
+    def _run(self, coro):
+        return self._loop.run_until_complete(coro)
+
+    def close(self) -> None:
+        try:
+            self._run(self.client.close())
+        finally:
+            self._loop.close()
+
+    def get_header(self, n):
+        return self._run(self.client.get_header_scale(n))
+
+    def get_roots_range(self, start, end):
+        from ..circuits import scale
+        headers = self._run(self.client.get_headers_range(start + 1, end))
+        decs = [scale.decode_header_bytes(h) for h in headers]
+        return ([d["state_root"] for d in decs],
+                [d["data_root"] for d in decs])
+
+    def last_justified_block(self, sid):
+        return self._run(self.client.last_justified_block(sid))
+
+    def get_authorities(self, n):
+        return self._run(self.client.get_authorities(n))
+
+    def get_authority_set_id(self, n):
+        return self._run(self.client.get_authority_set_id(n))
+
+    def get_justification_record(self, block):
+        from .grandpa import JustificationProvider
+        from .store import InMemoryStore, RedisStore
+        redis_url = os.environ.get("REDIS_URL")
+        store = RedisStore(redis_url) if redis_url else InMemoryStore()
+        return self._run(
+            JustificationProvider(self.client, store, self.device).get(block))
+
+    def get_justification_data(self, block):
+        from .grandpa import to_device_justification
+        return to_device_justification(
+            self.get_justification_record(block),
+            consts.MAX_AUTHORITY_SET_SIZE, self.device)
+
+    def get_rotate_data(self, authority_set_id):
         from ..circuits.rotate import find_scheduled_change
         block = self.last_justified_block(authority_set_id)
         header = self.get_header(block)
@@ -476,8 +551,8 @@ def main(argv=None) -> int:
     if args.program == "genesis":
         if args.block is None:
             p.error("genesis requires --block")
-        source = _source(args, device)
-        print(json.dumps(_genesis(source, args.block), indent=2))
+        with _source(args, device) as source:
+            print(json.dumps(_genesis(source, args.block), indent=2))
         return 0
 
     if args.verb is None:
@@ -498,12 +573,12 @@ def main(argv=None) -> int:
 
     if not args.input:
         p.error("prove requires input.json")
-    source = _source(args, device)
-    out = run_program(args.program, _load_input(args.input), source,
-                      args.tree_size, stark=args.stark,
-                      proof_path=args.proof, max_chunks=args.max_chunks,
-                      checkpoint=args.checkpoint, procs=args.procs,
-                      device=device)
+    with _source(args, device) as source:
+        out = run_program(args.program, _load_input(args.input), source,
+                          args.tree_size, stark=args.stark,
+                          proof_path=args.proof, max_chunks=args.max_chunks,
+                          checkpoint=args.checkpoint, procs=args.procs,
+                          device=device)
     result = {"output": "0x" + out.hex(), "ok": True}
     with open(args.output, "w") as f:
         json.dump(result, f)
@@ -511,12 +586,25 @@ def main(argv=None) -> int:
     return 0
 
 
-def _source(args, device) -> FixtureSource:
-    if not args.fixtures:
-        raise SystemExit(
-            "vectorx_tpu_torch reads chain data from --fixtures DIR only: "
-            "the live source (AVAIL_URL) is not ported yet")
-    return FixtureSource(args.fixtures, device=device)
+@contextlib.contextmanager
+def _source(args, device):
+    """The CLI's chain data: ``--fixtures DIR``, else the node at
+    ``AVAIL_URL`` (closed on the way out)."""
+    if args.fixtures:
+        yield FixtureSource(args.fixtures, device=device)
+        return
+    source = _live_source(device)
+    try:
+        yield source
+    finally:
+        source.close()
+
+
+def _live_source(device=None) -> LiveSource:
+    url = os.environ.get("AVAIL_URL")
+    if not url:
+        raise SystemExit("set AVAIL_URL or pass --fixtures")
+    return LiveSource(url, device)
 
 
 if __name__ == "__main__":

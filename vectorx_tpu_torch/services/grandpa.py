@@ -5,8 +5,10 @@ the ``GrandpaJustification`` it wraps, as VectorX justifies an epoch-end
 block: the result is aligned to the canonical authority order with
 dummy-filled unsigned lanes and handed to the device pipeline as a
 ``StoredJustification``. The signatures of an aligned record are checked
-by the batched Ed25519 verification on the device. Fetching them from a
-node (``JustificationProvider``) waits for the port of the live services.
+by the batched Ed25519 verification on the device.
+``JustificationProvider`` resolves a block's justification as VectorX
+does: an epoch-end block through a finality proof fetched from the node,
+every other block from the indexer's store.
 
 SCALE layouts (finality_grandpa / sp-consensus-grandpa):
 
@@ -35,7 +37,7 @@ import torch
 from .. import default_device
 
 from ..circuits import scale
-from .store import StoredJustification
+from .store import InMemoryStore, StoredJustification
 
 DUMMY_SIGNATURE = bytes(64)
 
@@ -140,6 +142,35 @@ def align_justification(
         num_authorities=len(authorities),
         validator_signed=signed,
     )
+
+
+class JustificationProvider:
+    """A block's justification: at an epoch end (the set id changes at
+    the block) ``grandpa_proveFinality``, decoded and aligned to the
+    previous set with its signatures verified on the current CUDA device
+    unless ``device`` names another; otherwise the store's record."""
+
+    def __init__(self, client, store: InMemoryStore, device=None):
+        self.client = client
+        self.store = store
+        self.device = device
+
+    async def get(self, block_number: int) -> StoredJustification:
+        curr = await self.client.get_authority_set_id(block_number)
+        prev = await self.client.get_authority_set_id(block_number - 1)
+        if curr == prev + 1:
+            raw = await self.client.call("grandpa_proveFinality", [block_number])
+            data = bytes.fromhex(raw.removeprefix("0x"))
+            _, just = decode_finality_proof(data)
+            if just.target_number != block_number:
+                raise ValueError("finality proof targets a different block")
+            authorities = await self.client.get_authorities(block_number - 1)
+            return align_justification(just, authorities, prev,
+                                       device=self.device)
+        rec = self.store.get_justification(block_number)
+        if rec is None:
+            raise LookupError(f"no stored justification for {block_number}")
+        return rec
 
 
 def to_device_justification(rec: StoredJustification, max_authorities: int,

@@ -5,9 +5,9 @@
 - ``{chain}:{address}:cursors``               list of [start, end] ranges
 - ``{chain}:blockrange:{start}-{end}``        ABI-packed commitment ranges
 
-``InMemoryStore`` holds it in the process (hermetic tests, single-process
-deployments). A Redis-backed store waits for the port of the live
-services.
+Backends: ``InMemoryStore`` (hermetic tests, single-process deployments)
+and ``RedisStore`` (the same schema over redis-py, imported when one is
+constructed, so the dependency stays optional).
 """
 
 from __future__ import annotations
@@ -80,4 +80,44 @@ class InMemoryStore:
 
     def get_cursors(self, address: str) -> List[List[int]]:
         raw = self._kv.get(f"{self.chain_id}:{address.lower()}:cursors")
+        return json.loads(raw) if raw else []
+
+
+class RedisStore(InMemoryStore):
+    """The same schema over a Redis server; requires redis-py."""
+
+    def __init__(self, url: str, chain_id: str = "avail"):
+        super().__init__(chain_id)
+        import redis
+        self._r = redis.Redis.from_url(url, decode_responses=True)
+
+    def add_justification(self, j: StoredJustification) -> None:
+        key = f"{self.chain_id}:justification:{j.block_number}"
+        self._r.set(key, j.to_json())
+        self._r.zadd(f"{self.chain_id}:justifications", {key: j.block_number})
+
+    def get_justification(self, block_number: int):
+        raw = self._r.get(f"{self.chain_id}:justification:{block_number}")
+        return StoredJustification.from_json(raw) if raw else None
+
+    def justified_blocks_in_range(self, start: int, end: int) -> List[int]:
+        keys = self._r.zrangebyscore(f"{self.chain_id}:justifications", start, end)
+        return sorted(int(k.rsplit(":", 1)[1]) for k in keys)
+
+    def add_block_range_data(self, start, end, data_commitment, state_commitment):
+        self._r.set(f"{self.chain_id}:blockrange:{start}-{end}",
+                    (data_commitment + state_commitment).hex())
+
+    def get_block_range_data(self, start, end):
+        raw = self._r.get(f"{self.chain_id}:blockrange:{start}-{end}")
+        if raw is None:
+            return None
+        blob = bytes.fromhex(raw)
+        return blob[:32], blob[32:]
+
+    def set_cursors(self, address, ranges):
+        self._r.set(f"{self.chain_id}:{address.lower()}:cursors", json.dumps(ranges))
+
+    def get_cursors(self, address):
+        raw = self._r.get(f"{self.chain_id}:{address.lower()}:cursors")
         return json.loads(raw) if raw else []
