@@ -91,7 +91,8 @@ Phases, a few lines each; any failure raises (non-zero exit, no final line):
                 with 300 and with 120 new keys
                 (output against the host's authority_set_hash), the --stark
                 route on 2 headers and 4 authorities (its process reports
-                its kernel launches; the bundle file verifies again here),
+                its kernel launches; the bundle file reads back to its
+                bytes here),
                 the same with --procs 2 --checkpoint (its header proofs in
                 worker processes; the same output), rotate --stark --procs
                 2 on 2 new keys and 4 authorities, and build of each
@@ -108,7 +109,21 @@ Phases, a few lines each; any failure raises (non-zero exit, no final line):
                 and the operator's rotate request on a chain one set
                 ahead; seconds by stage ([service-split], the port's
                 PhaseTimer). No Poseidon kernel on its path
-The main paths (6-14) each run with the launch counts set to 0 just before
+ 16. collective — the collective layer of parallel/ on meshes of 4 shards
+                of the one card (NCCL refuses two ranks on one card):
+                the [cli-header-range] chain sharded over the mesh, every
+                field equal to the single-device check's, a parent hash
+                forged at slot 128 (shard 2's first header) refused
+                ([collective-subchain]); the [slice] proof with
+                ShardedNttOps, its payload equal to the unsharded proof's,
+                verified, a tampered copy refused, its Poseidon launches a
+                main path of their own ([collective-prove]);
+                dryrun_multichip(4) ([collective-dryrun]); the two-process
+                demo on gloo (DCN_DEMO_OK with the single-device root,
+                DCN_MAP_OK) and phase 1 alone on NCCL at world size 1,
+                in processes of their own beside the subchain check
+                ([collective-dcn])
+The main paths (6-14, 16) each run with the launch counts set to 0 just before
 and read just after (the --stark process counts its own); the
 witness-level programs launch no Poseidon kernel. Processes of their own
 prove on the CPU what the card proves, at the lowest priority: the
@@ -116,9 +131,9 @@ recursion-small proofs (two processes) and the dsl-small proofs beside
 the main paths, then
 Ed25519VerifyAir(B=8) beside the kernel checks at the main paths' shapes
 (above); then
- 16. ed25519-small — Ed25519VerifyAir(B=8), one signed lane: identical
+ 17. ed25519-small — Ed25519VerifyAir(B=8), one signed lane: identical
                 payloads;
- 17. recursion-small and dsl-small on the CPU — every payload identical,
+ 18. recursion-small and dsl-small on the CPU — every payload identical,
                 and the same level-2 recording.
 The signatures come from an RFC 8032 signer on Python ints in this file
 (ed25519_sign), so no signing library is needed. Then one JSON line of the kernels, the total seconds, the card's name and
@@ -315,21 +330,24 @@ def check_permute(states, states_np) -> None:
 
 def check_duplex(states):
     """Chains of k chunks with a tail of r, absorbed with and without the
-    flush, and squeezes; the plain chain runs the three tails as a batch.
-    Returns the seconds of the plain 497-chunk chain on that batch."""
+    flush, and squeezes; the plain chain runs the three tails as a batch,
+    one chain read after each k (an absorb without the flush permutes
+    once a chunk, so the state after k chunks is a prefix of the longest
+    chain). Returns the seconds of the plain 497-chunk chain on that
+    batch, the sum of its segments."""
     flat = states.reshape(-1)
     state0 = states[:len(CHAIN_TAILS)].contiguous()              # (3, 12)
     kmax = max(CHAIN_CHUNKS)
     width = kmax * 8 + 7
     data = flat[36:36 + 3 * width].reshape(3, width)
-    plain_s = 0.0
-    for k in CHAIN_CHUNKS:
+    plain_s, full, done = 0.0, state0, 0
+    for k in sorted(CHAIN_CHUNKS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        full, _ = ps.duplex_plain(state0, data[:, :k * 8].contiguous())
+        full, _ = ps.duplex_plain(full, data[:, done * 8:k * 8].contiguous())
         torch.cuda.synchronize()
-        if k == kmax:
-            plain_s = time.perf_counter() - t0
+        plain_s += time.perf_counter() - t0
+        done = k
         for row, r in enumerate(CHAIN_TAILS):
             d = data[row, :k * 8 + r].contiguous()
             got, _ = pc.duplex(state0[row], d, False, 0)
@@ -1995,8 +2013,10 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
     record window runs past the padded header: the bytes read there are
     255, as in the JAX package), the --stark route on a small request (2
     headers, tree size 16, 4 authorities with 3 signed; the CLI fixes the
-    300-key chain and ed_B = 8) and `build` of each program. The bundle
-    file the --stark route wrote verifies again here."""
+    300-key chain and ed_B = 8), the same with --procs 2, rotate --stark
+    on 2 new keys and 4 authorities, and `build` of each program. The bundle
+    file the --stark route wrote (after its own verify) reads back to the
+    same bytes here."""
     t0 = time.perf_counter()
     d, headers, pubs, sigs, message = header_range_fixture(
         os.path.join(CLI_DIR, "header_range"), CLI_HEADERS, CLI_AUTHORITIES,
@@ -2088,18 +2108,14 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
         recorded = json.load(f)
     duplex_shapes.update(tuple(x) for x in recorded["duplex"])
     sponge_shapes.update(tuple(x) for x in recorded["sponge_rows"])
-    inp = abi.HeaderRangeInput.decode(bytes.fromhex(
-        json.load(open(os.path.join(sd, "input.json")))["input"][2:]))
+    # the CLI verified the bundle before it wrote the file; here the file
+    # must read back to the same bytes ([bundle-header-range] verifies a
+    # bundle that came back from its bytes)
     with open(proof, "rb") as f:
         blob = f.read()
     bundle, cfg = statements.deserialize_header_range(blob)
-    t0 = time.perf_counter()
-    again = statements.verify_header_range(
-        bundle, inp.trusted_block, inp.trusted_header_hash,
-        inp.authority_set_id, inp.authority_set_hash, inp.target_block, cfg)
-    if b"".join(again) != want:
-        raise AssertionError("the CLI's bundle file does not verify again")
-    reverify_s = time.perf_counter() - t0
+    if statements.serialize_header_range(bundle, cfg) != blob:
+        raise AssertionError("the CLI's bundle file does not read back")
 
     log("cli-header-range", headers=CLI_HEADERS,
         slots=f"{consts.HEADER_RANGE_TREE_SIZE_SMALL}x{consts.MAX_HEADER_SIZE}",
@@ -2114,7 +2130,7 @@ def phase_cli(duplex_shapes: set, sponge_shapes: set):
     log("cli-stark", headers=2, tree_size=16, authorities=4, signed=3,
         config=json.dumps(dataclasses.asdict(cfg)).replace(" ", ""),
         output="host", command_s=f"{done['stark'][2]:.3f}",
-        bundle_bytes=len(blob), reverify_s=f"{reverify_s:.3f}",
+        bundle_bytes=len(blob), file_round_trip="equal",
         procs2_output="equal", procs2_command_s=f"{done['stark_procs'][2]:.3f}",
         rotate_procs2_s=f"{done['rotate_stark_procs'][2]:.3f}",
         **{f"build_{p}_s": f"{done[f'build_{p}'][2]:.2f}"
@@ -2353,6 +2369,239 @@ def phase_service(d: str, cli_out: bytes):
         total_s=f"{sum(timer.totals.values()):.3f}")
 
 
+# -- the collective layer: meshes of shards of the one card -----------------
+
+COLLECTIVE_SHARDS = 4
+COLLECTIVE_DIR = os.path.join("build", "chip_smoke_collective")
+FORGED_SLOT = 128                # the first header of shard 2 of 4
+
+
+def cli_header_range_chain(d: str, dev):
+    """The [cli-header-range] chain from its fixture: (header bytes, sizes,
+    num_active, trusted hash, trusted block) for its 256 slots of 35,840
+    bytes, on `dev`."""
+    from vectorx_tpu_torch.parallel import subchain
+    from vectorx_tpu_torch.services import entrypoint
+    source = entrypoint.FixtureSource(d, device=dev)
+    headers = [source.get_header(b)
+               for b in range(CLI_TRUSTED, CLI_TRUSTED + CLI_HEADERS + 1)]
+    buf, sizes = subchain.pack_headers(headers[1:],
+                                       consts.HEADER_RANGE_TREE_SIZE_SMALL,
+                                       consts.MAX_HEADER_SIZE)
+    trusted = hashlib.blake2b(headers[0], digest_size=32).digest()
+    return (torch.from_numpy(buf).to(dev), torch.from_numpy(sizes).to(dev),
+            CLI_HEADERS,
+            torch.frombuffer(bytearray(trusted), dtype=torch.uint8).to(dev),
+            CLI_TRUSTED)
+
+
+def timed_subchain(args, mesh=None):
+    """-> (SubchainResult, seconds) of one verify_subchain call."""
+    from vectorx_tpu_torch.parallel import subchain
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = subchain.verify_subchain(*args, mesh=mesh)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def same_result(a, b) -> bool:
+    return all(torch.equal(x.to(y.device), y) for x, y in zip(a, b))
+
+
+def phase_collective_subchain(d: str):
+    """The cli_header_range_180 chain (180 active headers in 256 slots of
+    35,840 bytes) over a mesh of 4 shards of the card: every field equal
+    to the single-device call's; a parent hash forged at the first header
+    of shard 2 turns links_ok False."""
+    from vectorx_tpu_torch.parallel.mesh import Mesh
+    dev = default_device()
+    mesh = Mesh([dev] * COLLECTIVE_SHARDS)
+    args = cli_header_range_chain(d, dev)
+    one, one_s = timed_subchain(args)
+    sharded, sharded_s = timed_subchain(args, mesh)
+    if not (bool(one.links_ok) and bool(one.blocks_sequential)):
+        raise AssertionError("the [cli-header-range] chain does not verify")
+    if not same_result(sharded, one):
+        raise AssertionError("sharded verify_subchain != the single-device one")
+    forged = args[0].clone()
+    forged[FORGED_SLOT, 0] ^= 1
+    bad, bad_s = timed_subchain((forged,) + args[1:], mesh)
+    if bool(bad.links_ok):
+        raise AssertionError("a parent hash forged at slot 128 was not refused")
+    log("collective-subchain", mesh=f"{COLLECTIVE_SHARDS}x{dev}(one card)",
+        slots=f"{args[0].shape[0]}x{args[0].shape[1]}", active=args[2],
+        fields="equal", forged_slot=FORGED_SLOT, forged_links_ok=False,
+        one_device_s=f"{one_s:.3f}", sharded_s=f"{sharded_s:.3f}",
+        forged_sharded_s=f"{bad_s:.3f}")
+
+
+def collective_case():
+    """The [slice] proof's air, config and first header's case."""
+    air, log_n, cfg = slice_setup()
+    case = header_case(air, make_header(np.random.default_rng(3), 1000,
+                                        HEADER_BYTES))
+    return air, log_n, cfg, case
+
+
+def unsharded_payload() -> tuple:
+    """-> (the unsharded proof's bytes of the [collective-prove] header,
+    its warm prove seconds, its kernel launches)."""
+    air, _, cfg, case = collective_case()
+    proof, seconds, _, launches = timed_prove(air, case, cfg)
+    return serialize.serialize_proof(proof), seconds, launches
+
+
+def phase_collective_prove(want: bytes, unsharded_s: float,
+                           unsharded_launches: dict):
+    """The [slice] proof (HeaderAir(16), rate 8, 28 queries, pow 16)
+    proved with ShardedNttOps over 4 shards of the card: its payload equal
+    to the unsharded proof's, verified, a tampered copy refused; seconds,
+    peak memory, and the Poseidon launches of the prove, which must equal
+    the unsharded prove's (the same transcript and commits)."""
+    from vectorx_tpu_torch.parallel.mesh import Mesh
+    from vectorx_tpu_torch.parallel.ntt_dist import ShardedNttOps, _split
+    air, log_n, cfg, case = collective_case()
+    ops = ShardedNttOps(Mesh([default_device()] * COLLECTIVE_SHARDS))
+    before = dict(pc.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = prover.prove(air, *case, cfg, ntt_ops=ops)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: pc.launches[k] - before[k] for k in before}
+    if serialize.serialize_proof(proof) != want:
+        raise AssertionError("the sharded-NTT proof != the unsharded proof")
+    if launches != unsharded_launches:
+        raise AssertionError(f"the sharded-NTT prove launched {launches}, "
+                             f"the unsharded one {unsharded_launches}")
+    t0 = time.perf_counter()
+    if not verifier.verify(air, proof, case[1], log_n, cfg):
+        raise AssertionError("the sharded-NTT proof did not verify")
+    verify_s = time.perf_counter() - t0
+    if verifier.verify(air, flipped(proof, "trace_rows_a"), case[1], log_n,
+                       cfg):
+        raise AssertionError("a tampered sharded-NTT proof was accepted")
+    n_lde = air.n_rows << cfg.rate_bits
+    log("collective-prove", air=f"HeaderAir({HEADER_CHUNKS})",
+        rows=air.n_rows, cols=air.num_cols,
+        mesh=f"{COLLECTIVE_SHARDS}x{default_device()}(one card)",
+        trace_intt="x".join(map(str, _split(air.n_rows))),
+        lde="x".join(map(str, _split(n_lde))), payload="equal",
+        verified=True, tampered_refused=True, prove_s=f"{prove_s:.4f}",
+        unsharded_prove_s=f"{unsharded_s:.4f}",
+        verify_s=f"{verify_s:.4f}", peak_bytes=peak,
+        **{f"{k}_per_prove": v for k, v in launches.items()},
+        launches_per_prove="equal_to_unsharded")
+
+
+def phase_collective_dryrun():
+    from vectorx_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    dryrun_multichip(COLLECTIVE_SHARDS)
+    log("collective-dryrun", mesh=f"{COLLECTIVE_SHARDS}x{default_device()}",
+        phases=3, seconds=f"{time.perf_counter() - t0:.2f}")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_collective_dcn() -> tuple:
+    """Start the two-process demo (python -m
+    vectorx_tpu_torch.parallel.dcn_demo), each process with its 4 local
+    shards on the card, on gloo, since NCCL refuses two ranks on one card;
+    beside it one process at world size 1 on NCCL runs phase 1. Each
+    writes its output to log files of its own. -> (processes, their log
+    paths, start time)."""
+    import shutil
+    dev = default_device()
+    shutil.rmtree(COLLECTIVE_DIR, ignore_errors=True)
+    handoff = os.path.join(COLLECTIVE_DIR, "handoff")
+    os.makedirs(handoff)
+    demo = [sys.executable, "-m", "vectorx_tpu_torch.parallel.dcn_demo"]
+    gloo_port, nccl_port = free_port(), free_port()
+    args = [[str(gloo_port), str(pid), handoff, "--backend", "gloo"]
+            for pid in range(2)]
+    args.append([str(nccl_port), "0", "--backend", "nccl", "--processes",
+                 "1"])
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for i, a in enumerate(args):
+        out, err = (os.path.join(COLLECTIVE_DIR, f"dcn{i}.{k}")
+                    for k in ("out", "err"))
+        with open(out, "w") as fo, open(err, "w") as fe:
+            procs.append(subprocess.Popen(demo + a + ["--device", str(dev)],
+                                          stdout=fo, stderr=fe))
+        logs.append((out, err))
+    return procs, logs, t0
+
+
+def finish_collective_dcn(started):
+    """DCN_DEMO_OK with the single-device root of the same chain from both
+    groups, then DCN_MAP_OK from the gloo pair."""
+    from vectorx_tpu_torch.parallel import dcn_demo, subchain
+    dev = default_device()
+    procs, logs, t0 = started
+    headers, trusted = dcn_demo.demo_chain()
+    buf, sizes = subchain.pack_headers(headers, dcn_demo.N_HEADERS,
+                                       dcn_demo.SLOT_BYTES)
+    want = dcn_demo.root_hex(subchain.verify_subchain(
+        torch.from_numpy(buf).to(dev), torch.from_numpy(sizes).to(dev),
+        dcn_demo.N_HEADERS, torch.frombuffer(bytearray(trusted),
+                                             dtype=torch.uint8).to(dev),
+        0).state_root_words)
+    outs = []
+    for p, (out, err) in zip(procs, logs):
+        if p.wait(timeout=300) != 0:
+            raise AssertionError(f"dcn_demo exited {p.returncode}: "
+                                 f"{open(err).read().strip()[-2000:]}")
+        outs.append(open(out).read())
+    seconds = time.perf_counter() - t0
+    backends = [o.split("DCN_BACKEND", 1)[1].split()[0] for o in outs]
+    roots = [outs[i].split("DCN_DEMO_OK", 1)[1].split()[0] for i in (0, 2)]
+    if (backends != ["gloo", "gloo", "nccl"] or roots != [want, want]
+            or "DCN_MAP_OK" not in outs[0]):
+        raise AssertionError(f"dcn_demo: {backends} {roots} != {want}: {outs}")
+    log("collective-dcn", processes=2, backend="gloo",
+        mesh=f"dcn=2 x batch=4 of {dev}(one card)", root=want,
+        root_equal_to_single_device=True, map="DCN_MAP_OK",
+        nccl_world1="DCN_DEMO_OK", seconds_beside_subchain=f"{seconds:.1f}")
+
+
+def phase_collective(by_path: dict):
+    """[collective]: the multi-process demo in processes of its own beside
+    the sharded subchain check (which is launch-bound on this process),
+    then the sharded-NTT proof (its launches a main path of their own,
+    counted from 0 after the unsharded reference proof) and the dry run."""
+    t0 = time.perf_counter()
+    dcn = start_collective_dcn()
+    try:
+        phase_collective_subchain(os.path.join(CLI_DIR, "header_range"))
+        finish_collective_dcn(dcn)
+    finally:
+        for p in dcn[0]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    want, unsharded_s, unsharded_launches = unsharded_payload()
+    pc.reset_launches()
+    phase_collective_prove(want, unsharded_s, unsharded_launches)
+    by_path["collective-prove"] = launches = dict(pc.launches)
+    log("collective-prove-launches-total", **launches,
+        total=sum(launches.values()))
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the collective-prove path skipped a kernel: "
+                             f"{launches}")
+    phase_collective_dryrun()
+    log("collective", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def slice_setup():
     air = ah.HeaderAir(max_chunks=HEADER_CHUNKS)
     cfg = prover.StarkConfig(rate_bits=3, num_queries=28, final_poly_len=8,
@@ -2539,6 +2788,8 @@ def main() -> int:
         pc.reset_launches()
         phase_service(os.path.join(CLI_DIR, "header_range"), cli_out)
         log("service-launches-total", **pc.launches)
+        # the collective layer, on meshes of shards of the one card
+        phase_collective(by_path)
         # the kernels at the main paths' shapes
         ed_on_cpu = pool.apply_async(ed25519_small_payload_on_cpu)
         t0 = time.perf_counter()

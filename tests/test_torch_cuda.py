@@ -371,3 +371,26 @@ def test_out_of_range_window_reads_the_fill_on_card(card):
     assert bool((got[0, 50:] == 255).all())
     low = rot._window(arr, torch.tensor([-210], device=card), 20)
     assert low[0, :10].tolist() == [255] * 10 and low[0, 10:].tolist() == list(range(10))
+
+
+def test_dryrun_multichip_on_a_mesh_of_the_card(card):
+    """The sharded subchain, NTT and sharded-NTT prove on 4 shards of the
+    card (dryrun_multichip raises if a phase fails)."""
+    from vectorx_tpu_torch.parallel.dryrun import dryrun_multichip
+    out = dryrun_multichip(4, card)
+    assert out["ntt"].device == card and bool(out["subchain"].links_ok)
+
+
+@pytest.mark.parametrize("log_n", [11, 14])
+def test_sharded_ntt_on_the_card_equals_cpu(card, log_n):
+    """The [collective-prove] transform sizes, 4 shards of the card."""
+    from vectorx_tpu_torch.parallel import ntt_dist
+    from vectorx_tpu_torch.parallel.mesh import Mesh
+    from vectorx_tpu_torch.poly import ntt as pntt
+    rng = np.random.default_rng(log_n)
+    x = torch.from_numpy(rng.integers(0, P, (3, 1 << log_n), dtype=np.uint64)
+                         .view(np.int64))
+    mesh = Mesh([card] * 4)
+    for inverse in (False, True):
+        got = ntt_dist.ntt_sharded(x.to(card), mesh, inverse=inverse)
+        assert torch.equal(got.cpu(), pntt.ntt(x, inverse))

@@ -22,6 +22,8 @@ from vectorx_tpu_torch.circuits import justification as just
 from vectorx_tpu_torch.field import ext
 from vectorx_tpu_torch.field import field25519 as fe
 from vectorx_tpu_torch.field import goldilocks as gl
+from vectorx_tpu_torch.parallel.dryrun import dryrun_multichip
+from vectorx_tpu_torch.parallel.mesh import make_mesh
 from vectorx_tpu_torch.poly import domain as dom
 from vectorx_tpu_torch.hashes import blake2b as hb2
 from vectorx_tpu_torch.hashes import sha256 as s2
@@ -112,6 +114,10 @@ ENTRY_POINTS = {
         lambda r: r[2]),
     "dsl.TraceWriter.finish": (
         lambda d: _trace_writer().finish(d), lambda r: r),
+    "make_mesh": (
+        lambda d: make_mesh(1, device=d),
+        lambda r: r.put(torch.zeros(4, dtype=torch.int64))[0]),
+    "dryrun_multichip": (lambda d: dryrun_multichip(2, d), lambda r: r["ntt"]),
 }
 
 

@@ -75,6 +75,24 @@ def test_lanes_and_shards_equal_reference():
         assert air.publics_list()[0] == 2
 
 
-def test_prove_sigs_waits_for_parallel_with_several_devices():
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        pprove.prove_sigs([LANES["dummy"]], 8, None, device=["cpu", "cpu"])
+def test_prove_sigs_spreads_shards_over_several_devices(monkeypatch):
+    """Shard i is built and proved on device i % 2 of a list of two (each
+    the CPU); the prover is recorded, not run."""
+    built, proved = [], []
+
+    def make_trace_vec(self, device=None):
+        built.append(device)
+        return torch.zeros((1, 4), dtype=torch.int64, device=device), [0]
+
+    def prove(air, trace, pubs, config):
+        proved.append((trace.device, pubs[0].device))
+        return "proof"
+
+    monkeypatch.setattr(ped.Ed25519VerifyAir, "make_trace_vec",
+                        make_trace_vec)
+    monkeypatch.setattr(pprove.prover, "prove", prove)
+    two = [torch.device("cpu"), torch.device("cpu", 0)]
+    out = pprove.prove_sigs([LANES["dummy"]] * 3, 8, None, device=two)
+    assert built == [two[0], two[1], two[0]]
+    assert proved == [(torch.device("cpu"),) * 2] * 3
+    assert [proof for _, proof, _ in out] == ["proof"] * 3

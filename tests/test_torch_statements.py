@@ -196,21 +196,38 @@ def test_checkpoint_key_equals_reference():
         jckpt.Checkpoint(None)._key("hdr", JStarkConfig(**vars(CFG)), parts)
 
 
-def test_parallel_arguments_wait_for_parallel(setup):
+def test_parallel_arguments_procs_and_device_list(setup, monkeypatch):
     """procs > 1 sends the header proofs to worker processes, which hand
     them back through the checkpoint (here the fixture's, which holds every
     one: the workers find them and the bundle is the fixture's); without a
     checkpoint it refuses, as the JAX package does. A list of devices
-    still waits for the collective layer of parallel/."""
+    spreads the sub-proofs round-robin (header i on device i, the trees and
+    the chain after the headers): over two devices, each the CPU, every
+    sub-proof comes from the checkpoint on its slot's device and the bundle
+    is the one-device bundle's bytes."""
     args, kwargs = setup["args"], setup["kwargs"]
     again = st.prove_header_range(*args, **dict(kwargs, procs=2))
-    assert (st.serialize_header_range(again, CFG)
-            == st.serialize_header_range(setup["bundle"], CFG))
+    want = st.serialize_header_range(setup["bundle"], CFG)
+    assert st.serialize_header_range(again, CFG) == want
     no_ckpt = dict(kwargs, checkpoint=None)
     with pytest.raises(AssertionError, match="checkpoint"):
         st.prove_header_range(*args, **dict(no_ckpt, procs=2))
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        st.prove_header_range(*args, **dict(no_ckpt, device=["cpu", "cpu"]))
+    loads = []
+    load = st.Checkpoint.load
+
+    def recording_load(self, label, config, parts, air, device=None):
+        loads.append((label, device))
+        return load(self, label, config, parts, air, device)
+
+    two = [torch.device("cpu"), torch.device("cpu", 0)]
+    monkeypatch.setattr(st.Checkpoint, "load", recording_load)
+    spread = st.prove_header_range(*args, **dict(kwargs, device=two))
+    assert st.serialize_header_range(spread, CFG) == want
+    slots = list(range(N_HEADERS)) + [N_HEADERS, N_HEADERS + 1,
+                                      N_HEADERS + 2, 0, 0]
+    assert loads == [(label, two[i % 2]) for label, i in zip(
+        ["hdr"] * N_HEADERS + ["merkle", "merkle", "chain", "sig", "sha512"],
+        slots)]
 
 
 @pytest.mark.parametrize("block", [0, 1, 0xFFFFFFFF])

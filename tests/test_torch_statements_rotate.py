@@ -130,23 +130,40 @@ def test_rotate_rejects_wrong_epoch_block(setup):
         _verify(bad)
 
 
-def test_parallel_arguments_wait_for_parallel(setup):
+def test_parallel_arguments_procs_and_device_list(setup, monkeypatch):
     """procs: rotate takes it and drops it, as the JAX package does (its
     map phase is one header): procs=2 gives the procs=1 bundle (its
-    sub-proofs from the fixture's checkpoint). A list of devices still
-    waits for the collective layer of parallel/; header_range with
+    sub-proofs from the fixture's checkpoint). A list of devices spreads
+    the sub-proofs round-robin (the header on device 0, the two chains on
+    1 and 2, signature and challenge shard i on i): over two devices, each
+    the CPU, every sub-proof comes from the checkpoint on its slot's device
+    and the bundle is the one-device bundle's bytes. header_range with
     procs=2 and no checkpoint refuses, as the JAX package does."""
     def prove(**kw):
         return st.prove_rotate(
             EPOCH_END_BLOCK, HEADER, CUR_PUBS, setup["sigs"], SET_ID, ROUND,
             CFG, max_chunks=MAX_CHUNKS, max_authorities=MAX_AUTH, **kw)
 
+    want = st.serialize_rotate(setup["bundle"], CFG)
     again = prove(device="cpu", procs=2, checkpoint=setup["checkpoint"])
-    assert st.serialize_rotate(again, CFG) == st.serialize_rotate(
-        setup["bundle"], CFG)
+    assert st.serialize_rotate(again, CFG) == want
     assert _verify(again) == commitments.authority_set_hash(NEW_PUBS)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        prove(device=["cpu", "cpu"])
+    loads = []
+    load = st.Checkpoint.load
+
+    def recording_load(self, label, config, parts, air, device=None):
+        loads.append((label, device))
+        return load(self, label, config, parts, air, device)
+
+    two = [torch.device("cpu"), torch.device("cpu", 0)]
+    monkeypatch.setattr(st.Checkpoint, "load", recording_load)
+    spread = prove(device=two, checkpoint=setup["checkpoint"])
+    assert st.serialize_rotate(spread, CFG) == want
+    n_shards = len(setup["bundle"].sig_proofs)
+    labels = (["rot-hdr", "rot-chain", "rot-chain"] + ["sig"] * n_shards
+              + ["sha512"] * n_shards)
+    slots = [0, 1, 2] + list(range(n_shards)) * 2
+    assert loads == [(label, two[i % 2]) for label, i in zip(labels, slots)]
     with pytest.raises(AssertionError, match="checkpoint"):
         st.prove_header_range(
             EPOCH_END_BLOCK - 1, EPOCH_END_BLOCK, [HEADER], CUR_PUBS,

@@ -15,7 +15,10 @@ Mirrors the JAX package's layout (which stays the reference):
 - ``circuits`` — the SCALE codec (host and batched), size bounds, the
                  public commitments, batched Ed25519 verification, the
                  witness-level header_range and rotate programs, the ABI
-- ``parallel`` — the header-subchain check (one device)
+- ``parallel`` — device meshes, the sharded NTT (the prover's NTT seam),
+                 the header-subchain check on one device or sharded
+                 over a mesh, processes on torch.distributed, the map
+                 and reduce of proofs
 - ``services`` — the CLI (``python -m vectorx_tpu_torch``; fixtures or
                  the live Avail node), the dummy programs, the
                  justification store (in memory, Redis), GRANDPA decoding

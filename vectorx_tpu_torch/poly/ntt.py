@@ -135,3 +135,33 @@ def coset_lde(evals: gl.Fp, rate_bits: int,
 def coset_intt(evals: gl.Fp, shift: int) -> gl.Fp:
     """Coefficients of the poly whose evals on shift*H are given. (..., N)."""
     return _scale_by_powers(intt(evals), pow(shift % P, P - 2, P))
+
+
+# ---------------------------------------------------------------------------
+# Column tiles
+# ---------------------------------------------------------------------------
+# A batch of transforms too wide for the device goes through a block of
+# columns at a time; field arithmetic is exact, so every block size gives
+# the whole pass's values.
+
+#: int64 temporaries per output element of ``coset_lde`` at its peak (an
+#: estimate from the torch Goldilocks ops: a product builds ~8)
+LDE_TEMPS = 16
+#: the CPU's working set for a tiled pass
+CPU_WORK_BYTES = 1 << 30
+
+
+def work_bytes(device: torch.device) -> int:
+    """Bytes a tiled pass may hold at once: a quarter of the card's free
+    memory (what stays resident lies outside it), or a fixed 1 GiB on the
+    CPU."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return max(free // 4, 64 << 20)
+    return CPU_WORK_BYTES
+
+
+def col_tile(n_cols: int, n: int, temps: int, device: torch.device) -> int:
+    """Columns of length ``n`` a pass with ``temps`` int64 temporaries per
+    element takes at once (at least 1)."""
+    return max(1, min(n_cols, work_bytes(device) // (8 * temps * n)))

@@ -47,21 +47,28 @@ def shard_sigs(sigs: Sequence[Sig], B: int) -> List[List[Sig]]:
     return [list(sigs[i:i + per]) for i in range(0, len(sigs), per)]
 
 
+def device_list(device) -> List:
+    """The devices proofs go to round-robin: ``device`` (the current CUDA
+    device when None), or each of a list of them (an empty list: the
+    default)."""
+    if isinstance(device, (list, tuple)):
+        return [default_device(d) for d in device] or [default_device()]
+    return [default_device(device)]
+
+
 def prove_sigs(sigs: Sequence[Sig], B: int, config: prover.StarkConfig,
                device=None) -> List[Tuple[Ed25519VerifyAir,
                                           prover.StarkProof, List[int]]]:
     """-> per-shard (air, proof, publics), proved one after another on
-    ``device`` (the current CUDA device when None)."""
-    if isinstance(device, (list, tuple)):
-        raise NotImplementedError(
-            "proving shards across several devices waits for the port of "
-            "parallel/; pass one device")
-    device = default_device(device)
+    ``device`` (the current CUDA device when None), or round-robin over a
+    list of devices: shard i on ``device[i % len(device)]``."""
+    devices = device_list(device)
     out = []
-    for shard in shard_sigs(sigs, B):
+    for i, shard in enumerate(shard_sigs(sigs, B)):
         air = Ed25519VerifyAir(shard, B=B)
-        trace, publics = air.make_trace_vec(device)
-        pubs = [gl.to_fp(p, device) for p in publics]
+        dev = devices[i % len(devices)]
+        trace, publics = air.make_trace_vec(dev)
+        pubs = [gl.to_fp(p, dev) for p in publics]
         out.append((air, prover.prove(air, trace, pubs, config), publics))
     return out
 

@@ -107,28 +107,12 @@ class StarkProof:
 # are exact, so every tiling gives the same bytes as one whole pass.
 
 #: int64 temporaries per element a tiled phase holds at its peak: estimates
-#: from the torch Goldilocks ops (a product builds ~8)
-_LDE_TEMPS = 16
+#: from the torch Goldilocks ops (a product builds ~8); the LDE's is
+#: ``poly/ntt.LDE_TEMPS``
 _OPEN_TEMPS = 12
 _DEEP_TEMPS = 32
-#: the CPU's working set for a tiled phase
-_CPU_WORK_BYTES = 1 << 30
-
-
-def _work_bytes(device: torch.device) -> int:
-    """Bytes a tiled phase may hold at once: a quarter of the card's free
-    memory (the resident LDEs and trees stay outside it), or a fixed 1 GiB
-    on the CPU."""
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return max(free // 4, 64 << 20)
-    return _CPU_WORK_BYTES
-
-
-def _col_tile(n_cols: int, n: int, temps: int, device: torch.device) -> int:
-    """Columns of length ``n`` a phase with ``temps`` temporaries per
-    element takes at once (at least 1)."""
-    return max(1, min(n_cols, _work_bytes(device) // (8 * temps * n)))
+#: the column tile of a phase (``poly/ntt.col_tile``; tests patch it here)
+_col_tile = pntt.col_tile
 
 
 def _row_window(n_lde: int, width: int, kk2: int,
@@ -138,7 +122,7 @@ def _row_window(n_lde: int, width: int, kk2: int,
     (trace, constants, aux), the AIR's constraint values and temporaries
     (~8 per column), and ~64 extension temporaries per LogUp column pair."""
     per_row = 8 * (8 * width + 64 * kk2 + 4096)
-    rows = max(1, _work_bytes(device) // per_row)
+    rows = max(1, pntt.work_bytes(device) // per_row)
     b = 1 << min(n_lde.bit_length() - 1, rows.bit_length() - 1)
     return max(b, min(n_lde, 1024))
 
@@ -148,7 +132,7 @@ def lde_cols(cols: gl.Fp, rate: int) -> gl.Fp:
     (the NTT's temporaries are several times its output)."""
     w, n = cols.shape
     n_lde = n << rate
-    t = _col_tile(w, n_lde, _LDE_TEMPS, cols.device)
+    t = _col_tile(w, n_lde, pntt.LDE_TEMPS, cols.device)
     if t >= w:
         return pntt.coset_lde(cols, rate)
     out = torch.empty((w, n_lde), dtype=cols.dtype, device=cols.device)
@@ -411,18 +395,22 @@ def _combine(constraints, alphas_all: ext.Fp2, k0: int, acc: ext.Fp2, n_lde: int
 
 
 def quotient_tail(quotient: ext.Fp2, n: int, n_chunks: int, rate: int,
-                  shift: int):
+                  shift: int, ntt_ops=None):
     """Quotient codeword -> (quot_cols, chunk_evals_lde, chunk_evals_sub):
-    coset INTT, degree-N chunk split, per-chunk coset/subgroup re-evals."""
-    q_re = pntt.coset_intt(quotient[0], shift)
-    q_im = pntt.coset_intt(quotient[1], shift)
+    coset INTT, degree-N chunk split, per-chunk coset/subgroup re-evals.
+    The transforms are ``ntt_ops``'s (``coset_intt``,
+    ``coeffs_to_coset_evals``, ``ntt``): ``poly/ntt.py``'s by default,
+    the sharded ones with parallel/ntt_dist.ShardedNttOps."""
+    ops = ntt_ops or pntt
+    q_re = ops.coset_intt(quotient[0], shift)
+    q_im = ops.coset_intt(quotient[1], shift)
     chunk_evals_lde, chunk_evals_sub = [], []
     for i in range(n_chunks):
         cre = q_re[i * n:(i + 1) * n]
         cim = q_im[i * n:(i + 1) * n]
-        chunk_evals_lde.append((pntt.coeffs_to_coset_evals(cre, rate, shift),
-                                pntt.coeffs_to_coset_evals(cim, rate, shift)))
-        chunk_evals_sub.append((pntt.ntt(cre), pntt.ntt(cim)))
+        chunk_evals_lde.append((ops.coeffs_to_coset_evals(cre, rate, shift),
+                                ops.coeffs_to_coset_evals(cim, rate, shift)))
+        chunk_evals_sub.append((ops.ntt(cre), ops.ntt(cim)))
     quot_cols = torch.stack([c[j] for c in chunk_evals_lde for j in (0, 1)])
     return quot_cols, chunk_evals_lde, chunk_evals_sub
 
@@ -508,11 +496,13 @@ def _window(lde: gl.Fp, s: int, b: int, step: int):
 def quotient_phase(air: Air, log_n: int, rate: int, trace_lde: gl.Fp,
                    c_lde, publics: List[gl.Fp], alpha: ext.Fp2,
                    gamma: ext.Fp2 | None = None, delta: ext.Fp2 | None = None,
-                   aux_lde: gl.Fp | None = None):
+                   aux_lde: gl.Fp | None = None, ntt_ops=None):
     """Constraint evaluation over the LDE domain (the AIR's, then the
     LogUp/RAM ones when there is an aux trace), α-combination, vanishing
     division, chunk split and re-evaluation. α order: transition, LogUp/RAM
     transition, first, LogUp/RAM first, last, LogUp/RAM last, every-row.
+    ``ntt_ops`` (parallel/ntt_dist.ShardedNttOps or alike) runs the chunk
+    split's transforms; by default they are ``poly/ntt.py``'s.
 
     The evaluation runs over windows of rows (``_row_window``): a window
     reads its rows and the rows one trace step on out of the resident LDEs,
@@ -577,7 +567,8 @@ def quotient_phase(air: Air, log_n: int, rate: int, trace_lde: gl.Fp,
         parts.append(quotient)
     quotient = (torch.cat([q[0] for q in parts]),
                 torch.cat([q[1] for q in parts]))
-    return quotient_tail(quotient, n, num_quotient_chunks(air), rate, SHIFT)
+    return quotient_tail(quotient, n, num_quotient_chunks(air), rate, SHIFT,
+                         ntt_ops)
 
 
 def _open_at(mats: List[gl.Fp], point: ext.Fp2, log_n: int) -> ext.Fp2:
@@ -597,11 +588,18 @@ def _open_at(mats: List[gl.Fp], point: ext.Fp2, log_n: int) -> ext.Fp2:
 # -- prove -----------------------------------------------------------------------------
 
 def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
-          challenger: Challenger | None = None, timer=None) -> StarkProof:
+          challenger: Challenger | None = None, timer=None,
+          ntt_ops=None) -> StarkProof:
     """trace: (num_cols, N) base field; publics: list of scalar Fp, on the
     trace's device. ``timer(phase)``, if given, is called as each phase
     ends (phase names: lde, commit, aux when the AIR has lookups or a RAM,
-    quotient, openings, deep, fri, queries)."""
+    quotient, openings, deep, fri, queries).
+
+    ``ntt_ops`` (``parallel/ntt_dist.ShardedNttOps``) runs every transform
+    of the proof over a device mesh: its ``coset_lde`` the trace and aux
+    blowups in place of ``lde_cols``, the rest the quotient's NTT tail.
+    Either gives the same bytes."""
+    lde = lde_cols if ntt_ops is None else ntt_ops.coset_lde
     mark = timer or (lambda phase: None)
     dev = trace.device
     if challenger is None:
@@ -625,7 +623,7 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
         n_consts = 0
 
     # -- 1/2: trace LDE + commitment --------------------------------------
-    trace_lde = lde_cols(trace, rate)                  # (num_cols, N_lde)
+    trace_lde = lde(trace, rate)                       # (num_cols, N_lde)
     mark("lde")
     trace_tree = merkle.build_cols(trace_lde, cap_height=config.cap_height)
     challenger.observe(torch.stack(publics))
@@ -647,7 +645,7 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
             delta_r = _pick_ext(challenger.squeeze_ext(1), 0)
         aux_trace = _build_aux(air, trace, lk_cols, gamma, delta_r, n, cfp)
         n_aux = aux_trace.shape[0]
-        aux_lde = lde_cols(aux_trace, rate)
+        aux_lde = lde(aux_trace, rate)
         aux_tree = merkle.build_cols(aux_lde, cap_height=config.cap_height)
         challenger.observe_digests(aux_tree.cap)
         mark("aux")
@@ -657,7 +655,7 @@ def prove(air: Air, trace: gl.Fp, publics: List[gl.Fp], config: StarkConfig,
     # -- 3/4: constraints + quotient ---------------------------------------
     quot_cols, chunk_evals_lde, chunk_evals_sub = quotient_phase(
         air, log_n, rate, trace_lde, c_lde, publics, alpha, gamma, delta_r,
-        aux_lde)
+        aux_lde, ntt_ops)
     n_chunks = num_quotient_chunks(air)
     quot_tree = merkle.build_cols(quot_cols, cap_height=config.cap_height)
     challenger.observe_digests(quot_tree.cap)

@@ -18,13 +18,15 @@ threshold): all host link checks first (phase A), then every STARK
 (phase B). The rotate statement proves that a justified epoch-end header
 schedules the new authority set, and outputs the new set's hash.
 
-Every proof of a bundle runs on one torch device (``device``, the current
-CUDA device when None). ``header_range`` with ``procs > 1`` scatters the
-per-header proofs over worker processes on that device
-(parallel/map_prove.prove_headers_procs), which hand them back through
-the checkpoint; ``rotate`` takes ``procs`` and drops it (its map phase is
-one header). Spreading a bundle over a list of devices waits for the
-collective layer of ``parallel/`` and raises NotImplementedError.
+The proofs of a bundle run on ``device``: one torch device (the current
+CUDA device when None), or a list of them, over which the sub-proofs go
+round-robin as in the JAX package (header i, then the two range trees and
+the chain after the headers; signature and challenge shard i on device
+i). The bundle's bytes do not depend on the devices. ``header_range`` with
+``procs > 1`` scatters the per-header proofs over worker processes on the
+first device (parallel/map_prove.prove_headers_procs), which hand them
+back through the checkpoint; ``rotate`` takes ``procs`` and drops it (its
+map phase is one header).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from .air_sha256_chain import ChainedSha256Air
 from .air_sha256_merkle import MerkleSha256Air
 from .air_sha512 import Sha512ChallengeAir
 from .checkpoint import Checkpoint
-from .ed25519_prove import shard_sigs, sigs_from_justification
+from .ed25519_prove import device_list, shard_sigs, sigs_from_justification
 from .prover import StarkConfig, StarkProof
 
 Sig = Tuple[bytes, bytes, int, int]
@@ -62,16 +64,6 @@ class VerificationError(AssertionError):
 def _check(cond, msg):
     if not cond:
         raise VerificationError(msg)
-
-
-def _one_device(device):
-    """The single torch device a bundle proves on."""
-    if isinstance(device, (list, tuple)):
-        raise NotImplementedError(
-            "proving a bundle across several devices waits for the "
-            "collective layer of parallel/ (torch.distributed); pass one "
-            "device")
-    return default_device(device)
 
 
 def _sig_ckpt_bytes(shard) -> bytes:
@@ -146,15 +138,17 @@ def _prove_unit(cp, label, config, parts, air, build, device):
     return proof, list(publics)
 
 
-def _prove_sig_shards(sigs, message: bytes, ed_B: int, config, cp, device):
-    """One Ed25519VerifyAir proof per shard of 2^(ed_B-8) lanes."""
+def _prove_sig_shards(sigs, message: bytes, ed_B: int, config, cp, devices):
+    """One Ed25519VerifyAir proof per shard of 2^(ed_B-8) lanes, shard i
+    on devices[i % len(devices)]."""
     sig_publics, sig_proofs, shard_list = [], [], []
-    for shard in shard_sigs(sigs, ed_B):
+    for i, shard in enumerate(shard_sigs(sigs, ed_B)):
         air = Ed25519VerifyAir(shard, B=ed_B)
         parts = (_sig_ckpt_bytes(shard), message, str(ed_B).encode())
+        dev = devices[i % len(devices)]
         proof, publics = _prove_unit(
             cp, "sig", config, parts, air,
-            lambda air=air: air.make_trace_vec(device), device)
+            lambda air=air, dev=dev: air.make_trace_vec(dev), dev)
         sig_proofs.append(proof)
         sig_publics.append(publics)
         shard_list.append(list(air.sigs))
@@ -162,17 +156,19 @@ def _prove_sig_shards(sigs, message: bytes, ed_B: int, config, cp, device):
 
 
 def _prove_challenge_shards(shard_list, message: bytes, ed_B: int,
-                            config: StarkConfig, cp, device):
+                            config: StarkConfig, cp, devices):
     """One Sha512ChallengeAir proof per signature shard: every lane's
-    h = SHA-512(R‖A‖M) mod L proven in-STARK."""
+    h = SHA-512(R‖A‖M) mod L proven in-STARK; shard i on
+    devices[i % len(devices)]."""
     publics_l, proofs = [], []
-    for shard in shard_list:
+    for i, shard in enumerate(shard_list):
         air = Sha512ChallengeAir(shard, message, B=ed_B)
         parts = (_sig_ckpt_bytes(shard), message, b"sha512",
                  str(ed_B).encode())
+        dev = devices[i % len(devices)]
         proof, publics = _prove_unit(
             cp, "sha512", config, parts, air,
-            lambda air=air: air.make_trace(device), device)
+            lambda air=air, dev=dev: air.make_trace(dev), dev)
         proofs.append(proof)
         publics_l.append(list(publics))
     return publics_l, proofs
@@ -207,7 +203,11 @@ def prove_header_range(
 ) -> HeaderRangeStarkProof:
     n = len(headers)
     assert n == target_block - trusted_block and 0 < n <= tree_size
-    device = _one_device(device)
+    devices = device_list(device)
+
+    def slot(i):
+        return devices[i % len(devices)]
+
     cp = Checkpoint(checkpoint)
 
     if procs > 1:
@@ -219,38 +219,40 @@ def prove_header_range(
                 "procs > 1 needs a checkpoint dir for handoff")
         from ..parallel.map_prove import prove_headers_procs
         prove_headers_procs([bytes(h) for h in headers], max_chunks,
-                            config, checkpoint, procs, device=device)
+                            config, checkpoint, procs, device=devices[0])
 
     # -- per-header hash+decode proofs -----------------------------------
     air_h = HeaderAir(max_chunks)
     header_publics, header_proofs = [], []
     state_roots, data_roots = [], []
-    for hdr in headers:
+    for i, hdr in enumerate(headers):
         parts = (bytes(hdr), str(max_chunks).encode())
+        dev = slot(i)
         proof, publics = _prove_unit(
             cp, "hdr", config, parts, air_h,
-            lambda hdr=hdr: air_h.make_trace(bytes(hdr), device)[:2], device)
+            lambda hdr=hdr, dev=dev: air_h.make_trace(bytes(hdr), dev)[:2],
+            dev)
         header_proofs.append(proof)
         header_publics.append(publics)
-        f = header_publics_fields(publics, device=device)
+        f = header_publics_fields(publics, device=dev)
         state_roots.append(f["state_root"])
         data_roots.append(f["data_root"])
     target_hash = hashlib.blake2b(bytes(headers[-1]),
                                   digest_size=32).digest()
 
     # -- range-commitment Merkle proofs -----------------------------------
-    def merkle(leaves: List[bytes]):
+    def merkle(leaves: List[bytes], dev):
         parts = (b"".join(leaves), str(tree_size).encode())
         words = [_leaf_words(lf) for lf in
                  leaves + [bytes(32)] * (tree_size - len(leaves))]
         air = MerkleSha256Air(words)
         proof, publics = _prove_unit(
             cp, "merkle", config, parts, air,
-            lambda: air.make_trace(device)[:2], device)
+            lambda: air.make_trace(dev)[:2], dev)
         return publics, proof
 
-    state_pub, state_prf = merkle(state_roots)
-    data_pub, data_prf = merkle(data_roots)
+    state_pub, state_prf = merkle(state_roots, slot(n))
+    data_pub, data_prf = merkle(data_roots, slot(n + 1))
 
     # -- authority-set commitment proof ------------------------------------
     chain_air = ChainedSha256Air(max_authorities)
@@ -259,17 +261,17 @@ def prove_header_range(
     parts = (b"".join(authorities), str(max_authorities).encode())
     chain_prf, chain_pub = _prove_unit(
         cp, "chain", config, parts, chain_air,
-        lambda: chain_air.make_trace(words, len(authorities), device)[:2],
-        device)
+        lambda: chain_air.make_trace(words, len(authorities), slot(n + 2))[:2],
+        slot(n + 2))
 
     # -- precommit signatures ----------------------------------------------
     message = scale.encode_precommit_bytes(target_hash, target_block,
                                            round_, authority_set_id)
     signed, sigs = _justification(authorities, signatures, message)
     sig_publics, sig_proofs, shard_list = _prove_sig_shards(
-        sigs, message, ed_B, config, cp, device)
+        sigs, message, ed_B, config, cp, devices)
     sha_publics, sha_proofs = _prove_challenge_shards(
-        shard_list, message, ed_B, config, cp, device)
+        shard_list, message, ed_B, config, cp, devices)
 
     return HeaderRangeStarkProof(
         tree_size=tree_size, max_chunks=max_chunks,
@@ -471,38 +473,39 @@ def prove_rotate(
                                        # rotate map phase is one header
 ) -> RotateStarkProof:
     del procs
-    device = _one_device(device)
+    devices = device_list(device)
     cp = Checkpoint(checkpoint)
 
     air_r = RotateHeaderAir(max_chunks)
     trace, publics, digest, (start, n_new, new_pubkeys) = \
-        air_r.make_trace(bytes(header), device)
+        air_r.make_trace(bytes(header), devices[0])
     parts_h = (bytes(header), str(max_chunks).encode())
     header_proof, _ = _prove_unit(cp, "rot-hdr", config, parts_h, air_r,
-                                  lambda: (trace, publics), device)
+                                  lambda: (trace, publics), devices[0])
     end = start + int(publics[P_WLEN])
     window = bytes(header)[start:end]
 
-    def chain(keys):
+    def chain(keys, slot):
         air = ChainedSha256Air(max_authorities)
         parts = (b"".join(keys), str(max_authorities).encode())
         words = ChainedSha256Air.pubkeys_to_words(list(keys),
                                                   max_authorities)
+        dev = devices[slot % len(devices)]
         proof, pub = _prove_unit(
             cp, "rot-chain", config, parts, air,
-            lambda: air.make_trace(words, len(keys), device)[:2], device)
+            lambda: air.make_trace(words, len(keys), dev)[:2], dev)
         return pub, proof
 
-    cur_pub, cur_prf = chain(authorities)
-    new_pub, new_prf = chain(new_pubkeys)
+    cur_pub, cur_prf = chain(authorities, 1)
+    new_pub, new_prf = chain(new_pubkeys, 2)
 
     message = scale.encode_precommit_bytes(digest, epoch_end_block,
                                            round_, authority_set_id)
     signed, sigs = _justification(authorities, signatures, message)
     sig_publics, sig_proofs, shard_list = _prove_sig_shards(
-        sigs, message, ed_B, config, cp, device)
+        sigs, message, ed_B, config, cp, devices)
     sha_publics, sha_proofs = _prove_challenge_shards(
-        shard_list, message, ed_B, config, cp, device)
+        shard_list, message, ed_B, config, cp, devices)
 
     return RotateStarkProof(
         max_chunks=max_chunks, max_authorities=max_authorities, ed_B=ed_B,
