@@ -8,14 +8,15 @@ columns and trace, bit for bit); ``map_reduce_prove`` on the CPU gives ONE
 proof that ``verify_aggregate`` accepts against the claim shapes, and
 refuses under a claim shape with another link; ``aggregate_chain`` of one
 node still wraps it in a reduce node with the canonical layout
-(``aggregate_air_for`` rebuilds its schedule).
+(``aggregate_air_for`` rebuilds its schedule). The JAX package's reduce
+machine of its own proofs of the two shards is recorded
+(tests/reference_data/test_torch_aggregate.json, made by
+tests/reference_data/record.py); the port's shard proofs equal them.
 """
 
+import pytest
 import torch
 
-from vectorx_tpu.stark import prover as jprover
-from vectorx_tpu.stark import recursion_air as jra
-from vectorx_tpu.stark.air import FibonacciAir as JFibonacciAir
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.parallel import aggregate as agg
 from vectorx_tpu_torch.parallel import map_prove
@@ -23,18 +24,19 @@ from vectorx_tpu_torch.stark import prover
 from vectorx_tpu_torch.stark import recursion_air as ra
 from vectorx_tpu_torch.stark.air import FibonacciAir
 
-from test_torch_recursion import _assert_same_machine, _to_jax
+import reference_data as rd
+from reference_data import inputs
+from test_torch_recursion import _assert_same_machine, assert_same_payload
 
 torch.set_num_threads(1)
 
-N = 16
+N = inputs.AGG_N
 LOG_N = 4
-CFG = prover.StarkConfig(rate_bits=1, num_queries=2, final_poly_len=4)
-JCFG = jprover.StarkConfig(rate_bits=1, num_queries=2, final_poly_len=4)
+CFG = prover.StarkConfig(**inputs.REC_CFG)
 AIR = FibonacciAir()
 LAYOUT = agg.ChainLayout(start=(0,), end=(2,))
-LINKS = [(0, 2, 1, 0)]
-EXPOSE = [(0, 0), (1, 2)]
+LINKS = inputs.AGG_LINKS
+EXPOSE = inputs.AGG_EXPOSE
 SHAPES = [(AIR, LOG_N, CFG, 3), (AIR, LOG_N, CFG, 3)]
 
 
@@ -46,13 +48,20 @@ def _shards():
             [[gl.to_fp(p, "cpu") for p in pu] for pu in (pub_a, pub_b)])
 
 
-def test_map_reduce_prove_verifies_and_refuses_other_claims():
-    """ONE reduce proof of both shards (the heavy part of this module, so
-    in one test): verify_aggregate accepts it against the claim shapes and
-    refuses it under a claim whose link pins another pair of publics."""
+@pytest.fixture(scope="module")
+def reduce_node():
+    """ONE reduce proof of both shards (the heavy part of this module: its
+    own phase under the time limit) -> (node, publics)."""
     traces, pubs = _shards()
-    node = map_prove.map_reduce_prove(AIR, traces, pubs, LAYOUT, CFG,
-                                      devices=["cpu"])
+    return map_prove.map_reduce_prove(AIR, traces, pubs, LAYOUT, CFG,
+                                      devices=["cpu"]), pubs
+
+
+def test_map_reduce_prove_verifies_and_refuses_other_claims(reduce_node):
+    """ONE reduce proof of both shards: verify_aggregate accepts it against
+    the claim shapes and refuses it under a claim whose link pins another
+    pair of publics."""
+    node, pubs = reduce_node
     assert node.layout == agg.ChainLayout(start=(0,), end=(1,))
     assert node.publics == [int(pubs[0][0]), int(pubs[1][2])]
     assert agg.verify_aggregate(node, SHAPES, LINKS, EXPOSE)
@@ -62,23 +71,14 @@ def test_map_reduce_prove_verifies_and_refuses_other_claims():
 def test_reduce_program_equals_reference():
     """The reduce node of the aggregate (links end_A == start_B, expose
     start_A ‖ end_B) records the JAX package's machine."""
+    want = rd.load("test_torch_aggregate", inputs.test_torch_aggregate())
     traces, pubs = _shards()
     proofs = map_prove.prove_many(AIR, traces, pubs, CFG, ["cpu"])
+    for proof, inner in zip(proofs, want["inner"]):
+        assert_same_payload(proof, inner)
     children = [(AIR, p, pu, LOG_N, CFG) for p, pu in zip(proofs, pubs)]
     oair = ra.RecursionAir(ra.record_reduce(children, LINKS, EXPOSE))
-    jchildren = [(JFibonacciAir(), _to_jax(p, JFibonacciAir(), LOG_N),
-                  pu, LOG_N, JCFG) for p, pu in zip(proofs, pubs)]
-    mb = jra.MachineBuilder()
-    cl = [[mb.loadw(v) for v in ra._pub_ints(pu)]
-          for (_, _, pu, _, _) in jchildren]
-    for (ci, pi) in EXPOSE:
-        pc = mb.pin_public(mb.vals[cl[ci][pi]])
-        mb.eq_cells(pc, cl[ci][pi])
-    for (ci, pi, cj, pj) in LINKS:
-        mb.eq_cells(cl[ci][pi], cl[cj][pj])
-    for (a, pr, pu, ln, cf), cc in zip(jchildren, cl):
-        jra.record_stark_verify(mb, a, pr, cc, ln, cf)
-    _assert_same_machine(oair, jra.RecursionAir(mb))
+    _assert_same_machine(oair, want["reduce"])
     vair = agg.aggregate_air_for(SHAPES, LINKS, EXPOSE, device="cpu")
     assert vair.schedule_digest() == oair.schedule_digest()
 

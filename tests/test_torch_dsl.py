@@ -17,21 +17,19 @@ make_trace of this 131,072-row machine takes ~70 s). ``ctx.nxt()``
 outside a transition raises in the port (the JAX package reads the
 current row there); no DSL AIR in use calls it, so the payloads above
 are unchanged. Tolerance: exact equality throughout.
+
+The JAX package's side is recorded (tests/reference_data/test_torch_dsl.json,
+made by tests/reference_data/record.py): its hand-written PoseidonChainAir
+trace, the DSL AIR's proof of it and that proof's two machines, and the
+constraint values; the port's trace and proof equal the recorded ones
+before the machines are compared.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vectorx_tpu.field import goldilocks as jgl
 from vectorx_tpu.stark import dsl as jdsl
-from vectorx_tpu.stark import prover as jprover
-from vectorx_tpu.stark import recursion_air as jra
-from vectorx_tpu.stark import serialize as jserialize
-from vectorx_tpu.stark.air import BaseVecAlgebra as JBaseVecAlgebra
-from vectorx_tpu.stark.air import ExtAlgebra as JExtAlgebra
-from vectorx_tpu.stark.air_poseidon_dsl import (
-    build_poseidon_chain_air as jbuild_poseidon_chain_air)
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.stark import dsl, prover, serialize, verifier
 from vectorx_tpu_torch.stark import recursion_air as ra
@@ -40,16 +38,20 @@ from vectorx_tpu_torch.stark.air import (BaseVecAlgebra, ExtAlgebra,
 from vectorx_tpu_torch.stark.air_poseidon import PoseidonChainAir
 from vectorx_tpu_torch.stark.air_poseidon_dsl import build_poseidon_chain_air
 
+import reference_data as rd
 from oracle import P
-from test_torch_recursion import _assert_same_machine, _record, _to_jax
+from reference_data import inputs
+from reference_data.inputs import acc_air as _acc_air
+from reference_data.inputs import combinators_air as _combinators_air
+from test_torch_recursion import (_assert_same_machine, _record,
+                                  assert_same_payload)
 from test_torch_recursion_leaf import assert_trace_sample_equal
 
 torch.set_num_threads(1)
 
-CFG = dict(rate_bits=1, num_queries=2, final_poly_len=4)
+CFG = inputs.DSL_CFG
 PCFG = prover.StarkConfig(**CFG)
-JCFG = jprover.StarkConfig(**CFG)
-LOG_N = 5
+LOG_N = inputs.DSL_LOG_N
 
 
 def _fp(publics):
@@ -57,33 +59,9 @@ def _fp(publics):
 
 
 def _poseidon_case():
-    trace, publics, _ = PoseidonChainAir.make_trace(list(range(12)), 1, "cpu")
+    trace, publics, _ = PoseidonChainAir.make_trace(*inputs.DSL_POSEIDON,
+                                                    "cpu")
     return trace, [int(p) for p in publics]
-
-
-def _acc_air(mod):
-    """tests/test_dsl.py's accumulator: v' = flag ? v + 1 : v over a u32
-    family and a bit, authored in `mod` (the port's DSL or the JAX
-    package's) -> (builder, air, v, flag)."""
-    b = mod.AirBuilder(num_publics=2, name="acc")
-    v = b.u32("v")
-    flag = b.bit("flag")
-
-    @b.transition
-    def _(ctx):
-        ctx.eq(ctx.nxt(v.value),
-               ctx.select(ctx.cur(flag), ctx.cur(v.value) + 1,
-                          ctx.cur(v.value)))
-
-    @b.first_row
-    def _(ctx):
-        ctx.eq(ctx.cur(v.value), ctx.pub(0))
-
-    @b.last_row
-    def _(ctx):
-        ctx.eq(ctx.cur(v.value), ctx.pub(1))
-
-    return b, b.build(), v, flag
 
 
 def _acc_case():
@@ -101,13 +79,15 @@ def _acc_case():
 
 
 @pytest.fixture(scope="module")
-def jax_poseidon_payload():
-    """The JAX DSL Poseidon AIR's proof payload (the module's JAX prove)."""
-    jair, _ = jbuild_poseidon_chain_air()
+def jax_poseidon():
+    """The JAX side, as recorded: the JAX package's PoseidonChainAir trace
+    and publics, the JAX DSL Poseidon AIR's proof of them (the module's
+    JAX prove) and its two recursion machines."""
+    want = rd.load("test_torch_dsl", inputs.test_torch_dsl())
     trace, publics = _poseidon_case()
-    jtrace = jgl.to_fp(gl.from_fp(trace))
-    proof = jprover.prove(jair, jtrace, [jgl.to_fp(p) for p in publics], JCFG)
-    return serialize.split_payload(jserialize.serialize_proof(proof))
+    assert rd.array(gl.to_u64(trace)) == want["poseidon"]["trace"]
+    assert publics == want["poseidon"]["publics"]
+    return want
 
 
 def test_dsl_poseidon_port_accepts_handwritten_witness():
@@ -123,7 +103,7 @@ def test_dsl_poseidon_port_accepts_handwritten_witness():
 
 
 def test_dsl_poseidon_port_proves_verifies_and_matches_reference(
-        jax_poseidon_payload):
+        jax_poseidon):
     air, _ = build_poseidon_chain_air()
     trace, publics = _poseidon_case()
     proof = prover.prove(air, trace, _fp(publics), PCFG)
@@ -132,7 +112,8 @@ def test_dsl_poseidon_port_proves_verifies_and_matches_reference(
     bad[12] = (bad[12] + 1) % P
     assert not verifier.verify(air, proof, _fp(bad), LOG_N, PCFG)
     payload = serialize.payload(proof)
-    assert payload == jax_poseidon_payload
+    want = jax_poseidon["poseidon"]["payload"]
+    assert rd.payload_fields(payload, want) == want["fields"]
     # the same constraints in the same order as the hand-written AIR
     hand = prover.prove(PoseidonChainAir(), trace, _fp(publics), PCFG)
     assert payload == serialize.payload(hand)
@@ -157,101 +138,49 @@ def test_dsl_typed_families_and_select():
     assert verifier.verify(air, proof, _fp(publics), 4, cfg)
 
 
-def _combinators_air(mod):
-    """Every DSL construct the two AIRs above leave out, on a few columns:
-    dot with wide and negative coefficients, one_hot_dot, recompose,
-    rlc_window, sum, neg/rsub, one and zero_e, a constant column read at
-    the current and the next row, a range-checked column and a u16 in a
-    select, a public in every class, an every_row constraint."""
-    b = mod.AirBuilder(num_publics=3, name="combinators")
-    x = b.felts("x", 4)
-    r = b.range_checked("r")
-    h = b.u16("h")
-    k = b.constant("k", [3, 1, 4, 1, 5, 9, 2, 6])
-
-    @b.transition
-    def _(ctx):
-        c = [ctx.cur(v) for v in x]
-        ctx.eq(ctx.nxt(x[0]), ctx.dot(c, [5, P - 1, 7, 1 << 40]))
-        ctx.zero(ctx.one_hot_dot(c[:3], [11, 22, 33])
-                 - ctx.recompose(c, 1 << 16))
-        ctx.eq(ctx.rlc_window(ctx.pub(2), c),
-               ctx.sum(c) * ctx.cur(k) + ctx.nxt(k))
-        ctx.zero(-(c[1] - 3) + (5 - c[2]) * ctx.one() + ctx.zero_e())
-        ctx.eq(ctx.select(c[3], ctx.cur(r), ctx.cur(h.value)), ctx.pub(0))
-
-    @b.first_row
-    def _(ctx):
-        ctx.eq(ctx.cur(x[0]), ctx.pub(1))
-        ctx.zero(ctx.cur(k) - 3)
-
-    @b.every_row
-    def _(ctx):
-        ctx.eq(ctx.cur(r) * ctx.cur(r), ctx.cur(x[1]))
-
-    return b.build()
-
-
 def _dsl_airs(which):
     if which == "acc":
         return _acc_air(dsl)[1], _acc_air(jdsl)[1]
     return _combinators_air(dsl), _combinators_air(jdsl)
 
 
-def _u64_of_jax(e):
-    return (np.asarray(e[0]).astype(np.uint64)
-            | (np.asarray(e[1]).astype(np.uint64) << np.uint64(32)))
-
-
 @pytest.mark.parametrize("ring", ["base", "ext"])
 @pytest.mark.parametrize("which", ["acc", "combinators"])
-def test_constraint_values_equal_reference(which, ring):
+def test_constraint_values_equal_reference(which, ring, jax_poseidon):
     """transition, first_row and last_row of the port's and the JAX
     package's DSL AIR on the same seeded rows, constants and publics:
     under the base-field ring on 8 rows, and under the extension ring at
     one point. (The Poseidon DSL AIR's values are held by its payload
-    above: its quotient is the JAX package's at every LDE point.)"""
+    above: its quotient is the JAX package's at every LDE point.) The JAX
+    package's values are recorded."""
     air, jair = _dsl_airs(which)
     k = air.constant_columns(8).shape[0]
     assert k == jair.constant_columns(8).shape[0]
-    rng = np.random.default_rng(41)
-    m = 8 if ring == "base" else 1
     # [local, next, consts, consts_next] x [re, im] x columns x points
-    vals = rng.integers(0, P, (4, 2, max(air.num_cols, k), m),
-                        dtype=np.uint64)
+    vals, pubs = inputs.dsl_constraint_inputs(air.num_cols, k,
+                                              air.num_publics, ring)
+    m = vals.shape[3]
     widths = (air.num_cols, air.num_cols, k, k)
-    pubs = [int(x) for x in rng.integers(0, P, air.num_publics,
-                                         dtype=np.uint64)]
     if ring == "base":
-        alg, jalg = BaseVecAlgebra((m,), "cpu"), JBaseVecAlgebra((m,))
+        alg = BaseVecAlgebra((m,), "cpu")
         port = [list(gl.to_fp(vals[i, 0, :w], "cpu"))
                 for i, w in enumerate(widths)]
-        jfp = [jgl.to_fp(vals[i, 0, :w]) for i, w in enumerate(widths)]
-        jax = [[(f[0][c], f[1][c]) for c in range(w)]
-               for f, w in zip(jfp, widths)]
     else:
-        alg, jalg = ExtAlgebra("cpu"), JExtAlgebra()
-        port, jax = [], []
+        alg = ExtAlgebra("cpu")
+        port = []
         for i, w in enumerate(widths):
             re, im = (gl.to_fp(vals[i, j, :w, 0], "cpu") for j in (0, 1))
             port.append([(re[c], im[c]) for c in range(w)])
-            jre, jim = (jgl.to_fp(vals[i, j, :w, 0]) for j in (0, 1))
-            jax.append([((jre[0][c], jre[1][c]), (jim[0][c], jim[1][c]))
-                        for c in range(w)])
     ppubs = [gl.to_fp(p, "cpu").reshape(()) for p in pubs]
-    jpubs = [jgl.to_fp(p) for p in pubs]
     got = (air.transition(alg, port[0], port[1], ppubs, port[2], port[3])
            + air.first_row(alg, port[0], ppubs, port[2])
            + air.last_row(alg, port[0], ppubs, port[2]))
-    want = (jair.transition(jalg, jax[0], jax[1], jpubs, jax[2], jax[3])
-            + jair.first_row(jalg, jax[0], jpubs, jax[2])
-            + jair.last_row(jalg, jax[0], jpubs, jax[2]))
+    want = jax_poseidon["constraints"][f"{which}-{ring}"]
     assert len(got) == len(want) > 0
     for g, w in zip(got, want):
         pairs = zip(g, w) if ring == "ext" else [(g, w)]
         for a, b in pairs:
-            b = _u64_of_jax(b)
-            assert np.array_equal(np.broadcast_to(gl.to_u64(a), b.shape), b)
+            assert rd.array(np.broadcast_to(gl.to_u64(a), b["shape"])) == b
 
 
 def test_nxt_outside_a_transition_raises():
@@ -290,19 +219,18 @@ def test_nxt_outside_a_transition_raises():
 
 
 @pytest.mark.parametrize("stream", [False, True], ids=["plain", "streamed"])
-def test_recorded_dsl_poseidon_equals_reference(stream):
+def test_recorded_dsl_poseidon_equals_reference(stream, jax_poseidon):
     """The DSL Poseidon AIR's proof recorded through XAlgMB (the DSL's
     expressions on the machine ring) gives the JAX package's machine."""
     air, _ = build_poseidon_chain_air()
-    jair, _ = jbuild_poseidon_chain_air()
     trace, publics = _poseidon_case()
     proof = prover.prove(air, trace, _fp(publics), PCFG)
+    assert_same_payload(proof, jax_poseidon["poseidon"]["payload"])
+    want = jax_poseidon["poseidon"]["streamed" if stream else "plain"]
     oair = _record(ra, air, proof, publics, LOG_N, PCFG, stream)
-    jout = _record(jra, jair, _to_jax(proof, jair, LOG_N), publics, LOG_N,
-                   JCFG, stream)
     assert oair.has_ram == stream
-    _assert_same_machine(oair, jout, trace=False)
-    assert_trace_sample_equal(oair, jout)
+    _assert_same_machine(oair, want, trace=False)
+    assert_trace_sample_equal(oair, want)
     vair = ra.outer_air_for(air, LOG_N, PCFG, len(publics), stream=stream,
                             device="cpu")
     assert vair.schedule_digest() == oair.schedule_digest()

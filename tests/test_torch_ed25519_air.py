@@ -20,8 +20,10 @@ and the disabled-lane dummy. Held with tolerance 0:
   limb, and a wrong challenge h has no witness.
 
 The transition under ExtAlgebra, the verifier's algebra, is in
-test_torch_ed25519_ext.py: its JAX evaluation compiles about as long as
-this file's, so the two run on different workers.
+test_torch_ed25519_ext.py. The JAX package's traces and constraint values
+are recorded (tests/reference_data/test_torch_ed25519_air.json, made by
+tests/reference_data/record.py, which signs with its own RFC 8032 signer:
+the lanes must be the ones signed here).
 """
 
 import numpy as np
@@ -37,7 +39,10 @@ from vectorx_tpu_torch.stark import air_ed25519 as ped
 from vectorx_tpu_torch.stark import ed25519_prove
 from vectorx_tpu_torch.stark.air import check_constraints
 
+import reference_data as rd
 import test_torch_gadget_vec as common
+from reference_data import inputs
+from reference_data.inputs import random_columns
 
 torch.set_num_threads(1)
 
@@ -65,18 +70,20 @@ def _air(pkg, lane):
     return mod.Ed25519VerifyAir([LANES[lane]], B=B)
 
 
-def _trace_u64(pkg, lane, make):
-    """(trace as uint64, publics) of one package's witness function."""
-    key = (pkg, lane, make)
+@pytest.fixture(scope="module")
+def jax_rec():
+    """The JAX package's traces, publics and constraint values, as
+    recorded."""
+    return rd.load("test_torch_ed25519_air",
+                   inputs.test_torch_ed25519_air(LANES))
+
+
+def _trace_u64(lane, make):
+    """(trace as uint64, publics) of one port witness function."""
+    key = (lane, make)
     if key not in _cache:
-        air = _air(pkg, lane)
-        if pkg == "port":
-            trace, publics = getattr(air, make)("cpu")
-            _cache[key] = gl.to_u64(trace), [int(p) for p in publics]
-        else:
-            trace, publics = getattr(air, make)()
-            _cache[key] = (common._jax_u64(trace),
-                           [int(p) for p in air.publics_list()])
+        trace, publics = getattr(_air("port", lane), make)("cpu")
+        _cache[key] = gl.to_u64(trace), [int(p) for p in publics]
     return _cache[key]
 
 
@@ -84,20 +91,22 @@ def _trace_u64(pkg, lane, make):
 
 @pytest.mark.parametrize("lane", LANES)
 @pytest.mark.parametrize("make", ["make_trace", "make_trace_vec"])
-def test_trace_equal_reference(lane, make):
+def test_trace_equal_reference(lane, make, jax_rec):
     """Each port witness function against the JAX package's make_trace (its
     make_trace_vec is held to it in the JAX package's own tests)."""
-    got, publics = _trace_u64("port", lane, make)
-    want, jpublics = _trace_u64("jax", lane, "make_trace")
-    assert got.shape == want.shape == (_air("port", lane).num_cols, 1 << B)
-    assert np.array_equal(got, want)
-    assert publics == jpublics
+    got, publics = _trace_u64(lane, make)
+    want = jax_rec["traces"][f"{lane}-make_trace"]
+    assert (list(got.shape) == want["trace"]["shape"]
+            == [_air("port", lane).num_cols, 1 << B])
+    assert rd.array(got) == want["trace"]
+    assert publics == want["publics"]
 
 
 @pytest.mark.parametrize("lane", LANES)
-def test_reference_witness_functions_agree(lane):
-    assert np.array_equal(_trace_u64("jax", lane, "make_trace_vec")[0],
-                          _trace_u64("jax", lane, "make_trace")[0])
+def test_reference_witness_functions_agree(lane, jax_rec):
+    traces = jax_rec["traces"]
+    assert (traces[f"{lane}-make_trace_vec"]["trace"]
+            == traces[f"{lane}-make_trace"]["trace"])
 
 
 @pytest.mark.parametrize("lane", LANES)
@@ -122,24 +131,24 @@ def test_layout_equal_reference():
 
 # -- the constraints under the prover's algebra ----------------------------------
 
-def _base(pkg):
-    key = ("base", pkg)
+def _base():
+    key = "base"
     if key not in _cache:
-        air = _air(pkg, "signed")
+        air = _air("port", "signed")
         rng = np.random.default_rng(8)
         k = air.constant_columns(2).shape[0]
-        cols = (common.random_columns(rng, air.num_cols, 8),
-                common.random_columns(rng, air.num_cols, 8),
-                common.random_columns(rng, k, 8),
-                common.random_columns(rng, k, 8))
-        _cache[key] = common.base_eval(air, pkg, cols)
+        cols = (random_columns(rng, air.num_cols, 8),
+                random_columns(rng, air.num_cols, 8),
+                random_columns(rng, k, 8),
+                random_columns(rng, k, 8))
+        _cache[key] = common.base_eval(air, cols)
     return _cache[key]
 
 
 @pytest.mark.parametrize("i", range(N_CONSTRAINTS))
-def test_base_constraints_equal_reference(i):
-    assert len(_base("port")) == len(_base("jax")) == N_CONSTRAINTS
-    common.assert_equal_base(_base("port")[i], _base("jax")[i])
+def test_base_constraints_equal_reference(i, jax_rec):
+    assert len(_base()) == len(jax_rec["base"]) == N_CONSTRAINTS
+    common.assert_equal_base(_base()[i], jax_rec["base"][i])
 
 
 # -- check_constraints and the witness's own checks ---------------------------------

@@ -6,7 +6,9 @@ column and constant column a seeded (re, im) pair) is the verifier's ALI
 check; the port's values must equal the JAX package's constraint by
 constraint (tolerance 0). The lanes of a justification (signed, unsigned),
 their shards at B = 9 and each shard's publics must equal the JAX
-package's as well.
+package's as well. The JAX package's constraint values are recorded
+(tests/reference_data/test_torch_ed25519_ext.json, made by
+tests/reference_data/record.py).
 """
 
 import numpy as np
@@ -20,7 +22,10 @@ from vectorx_tpu.stark import ed25519_prove as jprove
 from vectorx_tpu_torch.stark import air_ed25519 as ped
 from vectorx_tpu_torch.stark import ed25519_prove as pprove
 
+import reference_data as rd
 import test_torch_gadget_vec as common
+from reference_data import inputs
+from reference_data.inputs import random_columns
 from test_torch_ed25519_air import LANES, MSG, N_CONSTRAINTS
 
 torch.set_num_threads(1)
@@ -28,24 +33,30 @@ torch.set_num_threads(1)
 _cache = {}
 
 
-def _ext(pkg):
-    if pkg not in _cache:
-        mod = ped if pkg == "port" else jed
-        air = mod.Ed25519VerifyAir([LANES["signed"]], B=8)
+@pytest.fixture(scope="module")
+def jax_ext():
+    """The JAX package's values, as recorded."""
+    return rd.load("test_torch_ed25519_ext",
+                   inputs.test_torch_ed25519_ext(LANES))["ext"]
+
+
+def _ext():
+    if "port" not in _cache:
+        air = ped.Ed25519VerifyAir([LANES["signed"]], B=8)
         rng = np.random.default_rng(9)
         k = air.constant_columns(2).shape[0]
-        cols = (common.random_columns(rng, air.num_cols, 2),
-                common.random_columns(rng, air.num_cols, 2),
-                common.random_columns(rng, k, 2),
-                common.random_columns(rng, k, 2))
-        _cache[pkg] = common.ext_eval(air, pkg, cols)
-    return _cache[pkg]
+        cols = (random_columns(rng, air.num_cols, 2),
+                random_columns(rng, air.num_cols, 2),
+                random_columns(rng, k, 2),
+                random_columns(rng, k, 2))
+        _cache["port"] = common.ext_eval(air, cols)
+    return _cache["port"]
 
 
 @pytest.mark.parametrize("i", range(N_CONSTRAINTS))
-def test_ext_constraints_equal_reference(i):
-    assert len(_ext("port")) == len(_ext("jax")) == N_CONSTRAINTS
-    common.assert_equal_ext(_ext("port")[i], _ext("jax")[i])
+def test_ext_constraints_equal_reference(i, jax_ext):
+    assert len(_ext()) == len(jax_ext) == N_CONSTRAINTS
+    common.assert_equal_ext(_ext()[i], jax_ext[i])
 
 
 def _justification(n: int, signed):

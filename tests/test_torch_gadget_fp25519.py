@@ -9,7 +9,9 @@ port's witness equals the int oracle and the JAX package's trace; the
 port's proof verifies and its payload equals the JAX package's (the
 module's one JAX prove, ~4 min of eager JAX on this AIR's 393
 constraints); a tampered product limb and a 9-bit limb are rejected.
-Tolerance: exact equality throughout.
+Tolerance: exact equality throughout. The JAX package's trace, publics,
+outputs and proof are recorded (tests/reference_data/
+test_torch_gadget_fp25519.json, made by tests/reference_data/record.py).
 """
 
 import importlib.util
@@ -19,15 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-from vectorx_tpu.field import goldilocks as jgl
 from vectorx_tpu.stark import gadget_fp25519 as jgfp
-from vectorx_tpu.stark import prover as jprover
-from vectorx_tpu.stark import serialize as jserialize
 from vectorx_tpu_torch.circuits.ed25519 import D_CONST
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.stark import gadget_fp25519 as gfp
 from vectorx_tpu_torch.stark import prover, serialize, verifier
 
+import reference_data as rd
+from reference_data import inputs
 from test_gadget_fp25519 import Fp25519OpsAir as JFp25519OpsAir
 
 torch.set_num_threads(1)
@@ -54,15 +55,11 @@ def _port_case(inputs=INPUTS):
     return gl.to_fp(cols, "cpu"), [gl.to_fp(p, "cpu") for p in publics], outs
 
 
-def _u64_of_jax(fp):
-    return (np.asarray(fp[0]).astype(np.uint64)
-            | (np.asarray(fp[1]).astype(np.uint64) << np.uint64(32)))
-
-
 @pytest.fixture(scope="module")
 def jax_case():
-    trace, publics, outs = JFp25519OpsAir().make_trace(*INPUTS)
-    return trace, publics, outs
+    """The JAX package's trace, publics, outputs and proof, as recorded."""
+    return rd.load("test_torch_gadget_fp25519",
+                   inputs.test_torch_gadget_fp25519(INPUTS))
 
 
 def test_helpers_equal_reference():
@@ -103,24 +100,18 @@ def test_witness_matches_int_oracle():
 
 def test_witness_equals_reference(jax_case):
     cols, publics, outs = AIR.witness(*INPUTS)
-    jtrace, jpublics, jouts = jax_case
-    assert outs == jouts
-    assert publics == [int(p) for p in jpublics]
-    assert np.array_equal(gl.to_u64(gl.to_fp(cols, "cpu")),
-                          _u64_of_jax(jtrace))
+    assert outs == jax_case["outs"]
+    assert publics == jax_case["publics"]
+    assert rd.array(gl.to_u64(gl.to_fp(cols, "cpu"))) == jax_case["trace"]
 
 
 def test_prove_verify_fp_ops_matches_reference(jax_case):
     trace, pubs, _ = _port_case()
     proof = prover.prove(AIR, trace, pubs, CFG)
     assert verifier.verify(AIR, proof, pubs, LOG_N, CFG)
-    jtrace, jpublics, _ = jax_case
-    jproof = jprover.prove(JFp25519OpsAir(), jtrace,
-                           [jgl.to_fp(int(p)) for p in jpublics],
-                           jprover.StarkConfig(rate_bits=2, num_queries=6,
-                                               final_poly_len=4))
-    assert serialize.payload(proof) == serialize.split_payload(
-        jserialize.serialize_proof(jproof))
+    assert CFG == prover.StarkConfig(**inputs.FP_CFG)
+    want = jax_case["payload"]
+    assert rd.payload_fields(serialize.payload(proof), want) == want["fields"]
     # tampering one product limb must fail
     bad = trace.clone()
     bad[AIR.mul.c[3], 7] = (bad[AIR.mul.c[3], 7] + 1) % 256

@@ -14,11 +14,12 @@ package from the same seeded field elements. Held with tolerance 0:
   point, equal the JAX package's, constraint by constraint;
 - check_constraints holds on the honest trace and fails on a tampered limb.
 
-The ``*_columns``, ``*_eval`` and ``assert_equal_*`` helpers are shared with
-the Ed25519 files.
+The JAX package's constraint values are recorded (tests/reference_data/
+test_torch_gadget_vec.json, made by tests/reference_data/record.py), and
+so are the Ed25519 files'. The ``*_eval`` and ``assert_equal_*`` helpers
+are shared with those files.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -30,134 +31,56 @@ from vectorx_tpu_torch.stark import air as pair
 from vectorx_tpu_torch.stark import gadget_vec as gv
 from vectorx_tpu_torch.stark.air import check_constraints
 
-from oracle import P
+import reference_data as rd
+from reference_data import inputs
+from reference_data.inputs import random_columns
 
 torch.set_num_threads(1)
 
-B = 8
-L = 32
-N = 1 << B
-K0 = 0x1234567890ABCDEF1234567890ABCDEF
-RNG = np.random.default_rng(77)
+B = inputs.GV_B
+L = inputs.GV_L
+N = inputs.GV_N
+K0 = inputs.GV_K0
 P25519 = gv.P25519
 
 
-# -- evaluating a transition in both packages ------------------------------------
+# -- evaluating a transition in the port --------------------------------------------
 
-def random_columns(rng, k: int, n: int) -> np.ndarray:
-    """(k, n) canonical Goldilocks values as uint64."""
-    return rng.integers(0, P, (k, n), dtype=np.uint64)
-
-
-def _jax_fp(u):
-    u = np.asarray(u, dtype=np.uint64)
-    return (jnp.asarray((u & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
-            jnp.asarray((u >> np.uint64(32)).astype(np.uint32)))
-
-
-def base_eval(air, pkg: str, cols, publics=()):
+def base_eval(air, cols, publics=()):
     """The transition of `air` under BaseVecAlgebra over the columns' width:
     cols = (local, next, consts, consts_next) uint64 matrices, publics a
-    uint64 vector."""
+    uint64 vector (record.py's base_eval gives the JAX package's)."""
     n = cols[0].shape[1]
-    if pkg == "jax":
-        rows = [[_jax_fp(m[i]) for i in range(m.shape[0])] for m in cols]
-        pubs = [_jax_fp(v) for v in publics]
-        alg = jair.BaseVecAlgebra((n,))
-    else:
-        rows = [list(gl.to_fp(m, "cpu")) for m in cols]
-        pubs = list(gl.to_fp(np.asarray(publics, dtype=np.uint64), "cpu"))
-        alg = pair.BaseVecAlgebra((n,), "cpu")
+    rows = [list(gl.to_fp(m, "cpu")) for m in cols]
+    pubs = list(gl.to_fp(np.asarray(publics, dtype=np.uint64), "cpu"))
+    alg = pair.BaseVecAlgebra((n,), "cpu")
     local, nxt, consts, consts_next = rows
     return air.transition(alg, local, nxt, pubs, consts, consts_next)
 
 
-def ext_eval(air, pkg: str, cols):
+def ext_eval(air, cols):
     """The transition under ExtAlgebra at one point: cols = (local, next,
     consts, consts_next), each a (k, 2) uint64 matrix of (re, im)."""
-    if pkg == "jax":
-        rows = [[(_jax_fp(m[i, 0]), _jax_fp(m[i, 1]))
-                 for i in range(m.shape[0])] for m in cols]
-        alg = jair.ExtAlgebra()
-    else:
-        rows = []
-        for m in cols:
-            re, im = gl.to_fp(m[:, 0], "cpu"), gl.to_fp(m[:, 1], "cpu")
-            rows.append([(re[i], im[i]) for i in range(m.shape[0])])
-        alg = pair.ExtAlgebra("cpu")
+    rows = []
+    for m in cols:
+        re, im = gl.to_fp(m[:, 0], "cpu"), gl.to_fp(m[:, 1], "cpu")
+        rows.append([(re[i], im[i]) for i in range(m.shape[0])])
+    alg = pair.ExtAlgebra("cpu")
     local, nxt, consts, consts_next = rows
     return air.transition(alg, local, nxt, [], consts, consts_next)
 
 
-def _jax_u64(pair_):
-    lo, hi = (np.asarray(x, dtype=np.uint64) for x in pair_)
-    return lo | (hi << np.uint64(32))
+def assert_equal_base(port_c, want):
+    """A port constraint's values against a recorded JAX one's."""
+    assert rd.array(gl.to_u64(port_c)) == want
 
 
-def assert_equal_base(port_c, jax_c):
-    assert gl.to_u64(port_c).shape == _jax_u64(jax_c).shape
-    assert np.array_equal(gl.to_u64(port_c), _jax_u64(jax_c))
-
-
-def assert_equal_ext(port_c, jax_c):
+def assert_equal_ext(port_c, want):
     for k in range(2):
-        assert np.array_equal(gl.to_u64(port_c[k]), _jax_u64(jax_c[k]))
+        assert rd.array(gl.to_u64(port_c[k])) == want[k]
 
 
 # -- the gadget AIR, once for each package ----------------------------------------
-
-def _vec_gadget_air(mod, base):
-    class VecGadgetAir(base):
-        """Per row: c0 = a·b; c1 = c0·a; c2 = (c0 + 4p − c1)·b; d0 = c0·K0;
-        na = −a, nb = −b (LinZero); canonicity of a and b."""
-        num_publics = 1
-        max_constraint_degree = 3
-
-        def __init__(self):
-            alloc = mod.AllocV()
-            self.a = alloc.take_np((L,))
-            self.b = alloc.take_np((L,))
-            self.na = alloc.take_np((L,))
-            self.nb = alloc.take_np((L,))
-            self.vm = mod.MulBank(alloc, B, 3, a_limb_max=1 << (B + 3),
-                                  b_limb_max=(1 << B) - 1)
-            self.cm = mod.MulBank(alloc, B, 1, a_limb_max=(1 << B) - 1,
-                                  b_limb_max=(1 << B) - 1)
-            self.lz = mod.LinZeroBank(alloc, B, 2, s_limb_max=1 << (B + 1))
-            self.cb = mod.CanonBank(alloc, B, 2)
-            self.num_cols = alloc.n
-            self._lookups = alloc.lookups
-
-        def lookup_range_columns(self):
-            return self._lookups
-
-        def transition(self, alg, local, next_row, publics, consts=(),
-                       consts_next=()):
-            lim = (1 << B) - 1
-            a = mod.t_gather(local, self.a)
-            b = mod.t_gather(local, self.b)
-            na = mod.t_gather(local, self.na)
-            nb = mod.t_gather(local, self.nb)
-            c0 = self.vm.c_inst(local, 0)
-            c1 = self.vm.c_inst(local, 1)
-            a_lins = [mod.lin([(1, a)], limb_max=lim),
-                      mod.lin([(1, c0)], limb_max=lim),
-                      mod.lin([(1, c0), (-1, c1)], const=4 * P25519,
-                              limb_max=6 * (1 << B))]
-            b_lins = [mod.lin([(1, b)], limb_max=lim),
-                      mod.lin([(1, a)], limb_max=lim),
-                      mod.lin([(1, b)], limb_max=lim)]
-            cs = list(self.vm.constraints(alg, local, a_lins, b_lins=b_lins))
-            cs += self.cm.constraints(alg, local,
-                                      [mod.lin([(1, c0)], limb_max=lim)],
-                                      b_consts=[K0])
-            cs += self.lz.constraints(
-                alg, local, [mod.lin([(1, a), (1, na)], limb_max=2 * lim),
-                             mod.lin([(1, b), (1, nb)], limb_max=2 * lim)])
-            cs += self.cb.constraints(alg, local, [a, b])
-            return cs
-    return VecGadgetAir()
-
 
 def _limbs(v):
     return [(v >> (B * i)) & 0xFF for i in range(L)]
@@ -218,14 +141,9 @@ def fill_all_rows(mod, air, a_vals, b_vals):
     return cols
 
 
-def _rand_fe(k):
-    return [int.from_bytes(RNG.bytes(32), "little") % (P25519 - 1) + 1
-            for _ in range(k)]
-
-
-A_VALS, B_VALS = _rand_fe(N), _rand_fe(N)
-AIRS = {"port": _vec_gadget_air(gv, pair.Air),
-        "jax": _vec_gadget_air(jgv, jair.Air)}
+A_VALS, B_VALS = inputs.GV_A_VALS, inputs.GV_B_VALS
+AIRS = {"port": inputs.vec_gadget_air(gv, pair.Air),
+        "jax": inputs.vec_gadget_air(jgv, jair.Air)}
 N_CONSTRAINTS = 5      # MulBank, constant MulBank, LinZero (bits, chain), Canon
 _cache = {}
 
@@ -291,35 +209,41 @@ def test_check_constraints_on_trace():
 
 # -- the constraints under both algebras ---------------------------------------
 
-def _base(pkg):
+@pytest.fixture(scope="module")
+def jax_evals():
+    """The JAX package's constraint values on the same rows, as recorded."""
+    return rd.load("test_torch_gadget_vec", inputs.test_torch_gadget_vec())
+
+
+def _base():
     def run():
-        air = AIRS[pkg]
+        air = AIRS["port"]
         rng = np.random.default_rng(5)
         cols = (random_columns(rng, air.num_cols, 8),
                 random_columns(rng, air.num_cols, 8),
                 random_columns(rng, 0, 8), random_columns(rng, 0, 8))
-        return base_eval(air, pkg, cols)
-    return _cached(("base", pkg), run)
+        return base_eval(air, cols)
+    return _cached(("base", "port"), run)
 
 
-def _ext(pkg):
+def _ext():
     def run():
-        air = AIRS[pkg]
+        air = AIRS["port"]
         rng = np.random.default_rng(6)
         cols = (random_columns(rng, air.num_cols, 2),
                 random_columns(rng, air.num_cols, 2),
                 random_columns(rng, 0, 2), random_columns(rng, 0, 2))
-        return ext_eval(air, pkg, cols)
-    return _cached(("ext", pkg), run)
+        return ext_eval(air, cols)
+    return _cached(("ext", "port"), run)
 
 
 @pytest.mark.parametrize("i", range(N_CONSTRAINTS))
-def test_base_constraints_equal_reference(i):
-    assert len(_base("port")) == len(_base("jax")) == N_CONSTRAINTS
-    assert_equal_base(_base("port")[i], _base("jax")[i])
+def test_base_constraints_equal_reference(i, jax_evals):
+    assert len(_base()) == len(jax_evals["base"]) == N_CONSTRAINTS
+    assert_equal_base(_base()[i], jax_evals["base"][i])
 
 
 @pytest.mark.parametrize("i", range(N_CONSTRAINTS))
-def test_ext_constraints_equal_reference(i):
-    assert len(_ext("port")) == len(_ext("jax")) == N_CONSTRAINTS
-    assert_equal_ext(_ext("port")[i], _ext("jax")[i])
+def test_ext_constraints_equal_reference(i, jax_evals):
+    assert len(_ext()) == len(jax_evals["ext"]) == N_CONSTRAINTS
+    assert_equal_ext(_ext()[i], jax_evals["ext"][i])

@@ -1,24 +1,22 @@
 """Port vs reference: the Avail-header AIR stack (SHA-256 compression base,
 Blake2b, HeaderAir) and one HeaderAir(max_chunks=1) proof.
 
-The JAX proof is built once per module (it dominates this file's time);
-payload equality with it makes a JAX verify of the port proof redundant.
+The JAX package's trace, constant columns, publics and proof of the
+header are recorded (tests/reference_data/test_torch_header.json, made by
+tests/reference_data/record.py); payload equality with that proof makes a
+JAX verify of the port proof redundant.
 """
 
 import hashlib
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 from vectorx_tpu.circuits import scale as jscale
-from vectorx_tpu.field import goldilocks as jgl
 from vectorx_tpu.stark import air_blake2b as jb2
 from vectorx_tpu.stark import air_header as jah
 from vectorx_tpu.stark import air_sha256 as jsha
-from vectorx_tpu.stark import prover as jprover
-from vectorx_tpu.stark import serialize as jserialize
 from vectorx_tpu_torch.circuits import scale
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.stark import air_blake2b as b2
@@ -27,19 +25,13 @@ from vectorx_tpu_torch.stark import air_sha256 as sha
 from vectorx_tpu_torch.stark import prover, serialize, verifier
 from vectorx_tpu_torch.stark.air import check_constraints
 
+import reference_data as rd
+from reference_data import inputs
+
 torch.set_num_threads(1)
 
-CFG = dict(rate_bits=2, num_queries=6, final_poly_len=4)
-
-
-def make_header(rng, bn: int, size: int) -> bytes:
-    parent = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
-    body = parent + scale.encode_compact_u32(bn)
-    body += bytes(rng.integers(0, 256, size - len(body) - 32, dtype=np.uint8))
-    return body + bytes(rng.integers(0, 256, 32, dtype=np.uint8))
-
-
-HEADER = make_header(np.random.default_rng(3), 1000, 100)
+CFG = inputs.HEADER_CFG
+HEADER = inputs.HEADER
 
 
 def _u64(j):
@@ -57,11 +49,9 @@ def port_case():
 
 @pytest.fixture(scope="module")
 def jax_case():
-    air = jah.HeaderAir(max_chunks=1)
-    trace, publics, digest = air.make_trace(HEADER)
-    pubs = [jgl.to_fp(int(p)) for p in publics]
-    proof = jprover.prove(air, trace, pubs, jprover.StarkConfig(**CFG))
-    return air, trace, publics, proof
+    """The JAX package's HeaderAir(1) trace, constants, publics and proof
+    of HEADER, as recorded."""
+    return rd.load("test_torch_header", inputs.test_torch_header())
 
 
 # -- codec and AIR witnesses ---------------------------------------------------
@@ -114,12 +104,12 @@ def test_blake2b_var_air_constants_match_reference():
 
 def test_header_trace_and_constants_match_reference(port_case, jax_case):
     air, trace, publics, _, digest, _ = port_case
-    jair, jtrace, jpublics, _ = jax_case
+    jpublics = jax_case["publics"]
     assert digest == hashlib.blake2b(HEADER, digest_size=32).digest()
     assert publics == jpublics
-    assert np.array_equal(gl.to_u64(trace), _u64(jtrace))
-    assert np.array_equal(air.constant_columns(air.n_rows),
-                          jair.constant_columns(jair.n_rows))
+    assert rd.array(gl.to_u64(trace)) == jax_case["trace"]
+    assert (rd.array(air.constant_columns(air.n_rows))
+            == jax_case["constant_columns"])
     assert ah.derive_gammas(publics[:ah.P_G1], "cpu") == jah.derive_gammas(publics[:ah.P_G1])
     fields = ah.header_publics_fields(publics, device="cpu")
     assert fields == jah.header_publics_fields(jpublics)
@@ -135,9 +125,10 @@ def test_header_constraints_hold(port_case):
 
 def test_header_payload_parity_with_reference(port_case, jax_case):
     proof = port_case[5]
-    jpayload = serialize.split_payload(jserialize.serialize_proof(jax_case[3]))
-    assert serialize.payload(proof) == jpayload
-    n_leaves = len(jax.tree_util.tree_leaves(jax_case[3]))
+    jpayload = jax_case["payload"]
+    assert (rd.payload_fields(serialize.payload(proof), jpayload)
+            == jpayload["fields"])
+    n_leaves = len(jpayload["fields"])
     assert 2 * len(serialize.convert.tensor_leaves(proof)) == n_leaves
 
 

@@ -1,10 +1,10 @@
 """Port vs JAX package: the recursion machine (stark/recursion_air.py).
 
-The inner proofs are the port's, proved on the CPU, and carried into the
-JAX package's StarkProof with the tree structure of its ``_zero_proof``
-(their payloads equal the JAX package's: test_torch_stark.py,
-test_torch_lookup.py). The same inner proof goes through the JAX
-``record_stark_verify`` and the port's, plain and streamed, at the shapes
+The inner proofs are the port's, proved on the CPU; their payloads equal
+the JAX package's inner proofs of the same traces, which went through the
+JAX ``record_stark_verify`` (recorded: tests/reference_data/
+test_torch_recursion.json, made by tests/reference_data/record.py). The
+port's records them, plain and streamed, at the shapes
 of tests/test_recursion_air.py and tests/test_recursion_stream.py
 (FibonacciAir, the LogUp range AIR and the constant-column AIR at 16
 rows, rate 1, 2 queries; also PoseidonChainAir at 64 rows): the row
@@ -18,25 +18,18 @@ Also: RecursionAir.transition against the JAX one on seeded rows; ONE
 package's and which each verifier accepts (the JAX prove is the module's
 heaviest part: ~3 min); tampered caps, leaves, publics and RAM values and
 a broken reduce link make the machine unsatisfiable; the verifier-side
-rebuilds give the prover's schedule digest.
+rebuilds give the prover's schedule digest. Each comparison with a
+recorded machine first holds the port's inner proof to the JAX package's
+inner payload.
 """
 
 import copy
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from vectorx_tpu.field import goldilocks as jgl
-from vectorx_tpu.stark import prover as jprover
 from vectorx_tpu.stark import recursion_air as jra
-from vectorx_tpu.stark import verifier as jverifier
-from vectorx_tpu.stark.air import Air as JAir
-from vectorx_tpu.stark.air import BaseVecAlgebra as JBaseVecAlgebra
-from vectorx_tpu.stark.air import FibonacciAir as JFibonacciAir
-from vectorx_tpu.stark.air_poseidon import PoseidonChainAir as JPoseidonChainAir
-from vectorx_tpu_torch import convert
 from vectorx_tpu_torch.field import ext
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.stark import prover, serialize, verifier
@@ -45,66 +38,64 @@ from vectorx_tpu_torch.stark.air import (Air, BaseVecAlgebra, FibonacciAir,
                                          check_constraints)
 from vectorx_tpu_torch.stark.air_poseidon import PoseidonChainAir
 
+import reference_data as rd
 from oracle import P
-from test_torch_lookup import _const_air, _const_case, _range_air
+from reference_data import inputs
+from reference_data.inputs import const_air, range_air
 
 torch.set_num_threads(1)
 
-LOG_N = 4
-CFG = dict(rate_bits=1, num_queries=2, final_poly_len=4)
+LOG_N = inputs.REC_LOG_N
+CFG = inputs.REC_CFG
 PCFG = prover.StarkConfig(**CFG)
-JCFG = jprover.StarkConfig(**CFG)
 
 
-def _fib_case():
-    trace, publics = FibonacciAir.make_trace(1 << LOG_N, device="cpu")
-    return gl.from_fp(trace), publics
+def _inner_case(spec):
+    """The port's inner trace values and publics from INNER's spec (the
+    JAX package's trace builders made the recorded inner proofs)."""
+    if "fibonacci" in spec:
+        trace, publics = FibonacciAir.make_trace(spec["fibonacci"],
+                                                 device="cpu")
+        return gl.from_fp(trace), publics
+    if "poseidon_chain" in spec:
+        trace, publics, _ = PoseidonChainAir.make_trace(
+            *spec["poseidon_chain"], "cpu")
+        return gl.from_fp(trace), [int(p) for p in publics]
+    return spec["values"]
 
 
-def _range_rec_case():
-    """tests/test_recursion_air.py's lookup case: both columns in [0, N)."""
-    rng = np.random.default_rng(7)
-    n = 1 << LOG_N
-    vals = rng.integers(0, n, (2, n), dtype=np.uint64)
-    return vals.astype(object), [int(vals[0, 0])]
-
-
-def _poseidon_case():
-    trace, publics, _ = PoseidonChainAir.make_trace(list(range(1, 13)), 2,
-                                                    "cpu")
-    return gl.from_fp(trace), [int(p) for p in publics]
-
-
-# name -> (port air, JAX air, (trace values, publics), log_n)
+# name -> (port air, (trace values, publics), log_n)
 INNER = {
-    "fib": (FibonacciAir(), JFibonacciAir(), _fib_case(), LOG_N),
-    "range": (_range_air(Air), _range_air(JAir), _range_rec_case(), LOG_N),
-    "const": (_const_air(Air), _const_air(JAir), _const_case(n=1 << LOG_N),
+    "fib": (FibonacciAir(), _inner_case(inputs.REC_INNER["fib"][0]), LOG_N),
+    "range": (range_air(Air), _inner_case(inputs.REC_INNER["range"][0]),
               LOG_N),
-    "poseidon": (PoseidonChainAir(), JPoseidonChainAir(), _poseidon_case(), 6),
+    "const": (const_air(Air), _inner_case(inputs.REC_INNER["const"][0]),
+              LOG_N),
+    "poseidon": (PoseidonChainAir(),
+                 _inner_case(inputs.REC_INNER["poseidon"][0]),
+                 inputs.REC_INNER["poseidon"][1]),
 }
 
 
+@pytest.fixture(scope="module")
+def jax_rec():
+    """The JAX package's inner payloads, machines, transition values and
+    outer proof, as recorded."""
+    return rd.load("test_torch_recursion", inputs.test_torch_recursion())
+
+
 def _port_inner(name):
-    air, _, (vals, publics), log_n = INNER[name]
+    air, (vals, publics), log_n = INNER[name]
     pubs = [gl.to_fp(int(p) % P, "cpu") for p in publics]
     proof = prover.prove(air, gl.to_fp(vals, "cpu"), pubs, PCFG)
     assert verifier.verify(air, proof, pubs, log_n, PCFG)
     return air, proof, pubs, log_n
 
 
-def _to_jax(proof, jair, log_n, cfg=JCFG):
-    """A port proof as the JAX package's StarkProof (same leaves)."""
-    like = jra._zero_proof(jair, log_n, cfg)
-    leaves = [jax.numpy.asarray(x) for pair in convert.proof_to_pairs(proof)
-              for x in pair]
-    return jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(like),
-                                        leaves)
-
-
-def _jax_u64(fp):
-    return (np.asarray(fp[0]).astype(np.uint64)
-            | (np.asarray(fp[1]).astype(np.uint64) << np.uint64(32)))
+def assert_same_payload(proof, want) -> None:
+    """The port's proof has the recorded JAX proof's payload, plane by
+    plane."""
+    assert rd.payload_fields(serialize.payload(proof), want) == want["fields"]
 
 
 def _record(mod, air, proof, pubs, log_n, cfg, stream, **kw):
@@ -115,31 +106,31 @@ def _record(mod, air, proof, pubs, log_n, cfg, stream, **kw):
     return mod.RecursionAir(mb)
 
 
-def _assert_same_machine(oair, jair_out, trace=True):
-    assert len(oair.mb.rows) == len(jair_out.mb.rows)
+def _assert_same_machine(oair, want, trace=True):
+    """`oair` against a JAX RecursionAir as recorded (record.py's
+    ``machine``): rows, shape, publics, schedule digest, constant columns
+    and, with `trace`, make_trace."""
+    assert len(oair.mb.rows) == want["rows"]
     assert (oair.n_rows, oair.K, oair.num_cols, oair.num_consts,
-            oair.has_ram) == (jair_out.n_rows, jair_out.K, jair_out.num_cols,
-                              jair_out.num_consts, jair_out.has_ram)
-    assert oair.mb.publics == jair_out.mb.publics
-    assert oair.schedule_digest() == jair_out.schedule_digest()
-    assert np.array_equal(oair.constant_columns(oair.n_rows),
-                          jair_out.constant_columns(jair_out.n_rows))
+            oair.has_ram) == tuple(want["shape"])
+    assert oair.mb.publics == want["publics"]
+    assert oair.schedule_digest() == want["schedule_digest"]
+    assert (rd.array(oair.constant_columns(oair.n_rows))
+            == want["constant_columns"])
     if trace:
         got, pubs = oair.make_trace("cpu")
-        want, jpubs = jair_out.make_trace()
-        assert pubs == jpubs
-        assert np.array_equal(gl.to_u64(got), _jax_u64(want))
+        assert pubs == want["trace_publics"]
+        assert rd.array(gl.to_u64(got)) == want["trace"]
 
 
 @pytest.mark.parametrize("stream", [False, True], ids=["plain", "streamed"])
 @pytest.mark.parametrize("name", list(INNER))
-def test_record_equals_reference(name, stream):
+def test_record_equals_reference(name, stream, jax_rec):
     air, proof, pubs, log_n = _port_inner(name)
-    jair = INNER[name][1]
+    assert_same_payload(proof, jax_rec["inner"][name])
     oair = _record(ra, air, proof, pubs, log_n, PCFG, stream)
-    jout = _record(jra, jair, _to_jax(proof, jair, log_n), pubs, log_n, JCFG,
-                   stream)
-    _assert_same_machine(oair, jout)
+    _assert_same_machine(
+        oair, jax_rec["record"][f"{name}-{'streamed' if stream else 'plain'}"])
     assert oair.has_ram == stream
     trace, opubs = oair.make_trace("cpu")
     assert check_constraints(oair, trace, [gl.to_fp(p, "cpu") for p in opubs])
@@ -149,21 +140,27 @@ def test_record_equals_reference(name, stream):
     assert vair.schedule_digest() == oair.schedule_digest()
 
 
-def test_two_level_schedule_equals_reference():
+@pytest.fixture(scope="module")
+def fib8_outer_air():
+    """The verifier's rebuild of FibonacciAir(8)'s recursion machine from
+    its claim shape (3 publics), shared by the tests that need it."""
+    return ra.outer_air_for(FibonacciAir(), 3, PCFG, 3, device="cpu")
+
+
+def test_two_level_schedule_equals_reference(jax_rec, fib8_outer_air):
     """RecursionAir as the inner AIR (a RecursionAir proof recursed): its
     transition records through XAlgMB into the same rows as the JAX
     package's, from the claim shape alone (the level-1 machine verifies
     FibonacciAir(8); the level-1 config has final_poly_len 32 as in
     tests/test_recursion_air.py)."""
     cfg1 = dict(rate_bits=1, num_queries=2, final_poly_len=32)
-    l1 = ra.outer_air_for(FibonacciAir(), 3, PCFG, 3, device="cpu")
-    jl1 = jra.outer_air_for(JFibonacciAir(), 3, JCFG, 3)
-    _assert_same_machine(l1, jl1, trace=False)
+    assert cfg1 == inputs.REC_TWO_LEVEL_CFG1
+    l1 = fib8_outer_air
+    _assert_same_machine(l1, jax_rec["two_level"]["l1"], trace=False)
     log_n1 = l1.n_rows.bit_length() - 1
     l2 = ra.outer_air_for(l1, log_n1, prover.StarkConfig(**cfg1), 3,
                           device="cpu")
-    jl2 = jra.outer_air_for(jl1, log_n1, jprover.StarkConfig(**cfg1), 3)
-    _assert_same_machine(l2, jl2, trace=False)
+    _assert_same_machine(l2, jax_rec["two_level"]["l2"], trace=False)
 
 
 def _bare_machine(mod):
@@ -184,7 +181,7 @@ def _bare_machine(mod):
 
 def test_bare_machine_equals_reference_and_rejects_tampering():
     oair, jout = _bare_machine(ra), _bare_machine(jra)
-    _assert_same_machine(oair, jout)
+    _assert_same_machine(oair, rd.machine(jout, trace=True))
     trace, pubs = oair.make_trace("cpu")
     fp = [gl.to_fp(p, "cpu") for p in pubs]
     assert check_constraints(oair, trace, fp)
@@ -196,17 +193,15 @@ def test_bare_machine_equals_reference_and_rejects_tampering():
     assert not check_constraints(oair, trace, wrong)
 
 
-def test_transition_equals_reference_on_seeded_rows():
+def test_transition_equals_reference_on_seeded_rows(jax_rec):
     """RecursionAir.transition and first_row under BaseVecAlgebra on 8
     seeded random rows per column, constant and public (the machine of a
     streamed FibonacciAir record: K registers in several banks, the RAM
     columns, three publics)."""
     air, proof, pubs, log_n = _port_inner("fib")
+    assert_same_payload(proof, jax_rec["inner"]["fib"])
     oair = _record(ra, air, proof, pubs, log_n, PCFG, True)
-    jout = _record(jra, JFibonacciAir(), _to_jax(proof, JFibonacciAir(),
-                                                 log_n), pubs, log_n, JCFG,
-                   True)
-    rng = np.random.default_rng(23)
+    rng = np.random.default_rng(inputs.REC_TRANSITION_SEED)
     m = 8
     cols = rng.integers(0, P, (oair.num_cols, m), dtype=np.uint64)
     nxt = rng.integers(0, P, (oair.num_cols, m), dtype=np.uint64)
@@ -218,23 +213,15 @@ def test_transition_equals_reference_on_seeded_rows():
     def port_rows(a):
         return list(gl.to_fp(a, "cpu"))
 
-    def jax_rows(a):
-        fp = jgl.to_fp(a)
-        return [(fp[0][i], fp[1][i]) for i in range(a.shape[0])]
-
     alg = BaseVecAlgebra((m,), "cpu")
     ppubs = [gl.to_fp(p, "cpu") for p in publics]
     got = oair.transition(alg, port_rows(cols), port_rows(nxt), ppubs,
                           port_rows(cst), port_rows(cstn))
     got += oair.first_row(alg, port_rows(cols), ppubs, port_rows(cst))
-    jalg = JBaseVecAlgebra((m,))
-    jpubs = [jgl.to_fp(p) for p in publics]
-    want = jout.transition(jalg, jax_rows(cols), jax_rows(nxt), jpubs,
-                           jax_rows(cst), jax_rows(cstn))
-    want += jout.first_row(jalg, jax_rows(cols), jpubs, jax_rows(cst))
+    want = jax_rec["transition"]
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        assert np.array_equal(gl.to_u64(g), _jax_u64(w))
+        assert rd.array(gl.to_u64(g)) == w
 
 
 def _flip_leaf(t):
@@ -372,39 +359,39 @@ def test_reduce_links_expose_and_broken_link():
     assert not check_constraints(bad, t2, [gl.to_fp(p, "cpu") for p in p2])
 
 
-def test_prove_recursive_payload_equals_reference_and_verifies_both_ways():
-    """ONE outer proof of FibonacciAir(8)'s verification: the port's CPU
-    payload equals the JAX package's; the port verifier accepts it against
-    outer_air_for's rebuild and refuses a changed public; the JAX verifier
-    accepts the port's proof."""
-    n = 8
+@pytest.fixture(scope="module")
+def recursive_proof():
+    """ONE outer proof of FibonacciAir(8)'s verification, on the CPU (the
+    module's heaviest part: its own phase under the time limit)."""
+    n = inputs.REC_RECURSIVE_N
     trace, publics = FibonacciAir.make_trace(n, device="cpu")
     pubs = [gl.to_fp(p, "cpu") for p in publics]
     air = FibonacciAir()
     inner = prover.prove(air, trace, pubs, PCFG)
-    oair, oproof, opubs = ra.prove_recursive(air, inner, pubs, 3, PCFG, PCFG,
-                                             device="cpu")
-    jinner = _to_jax(inner, JFibonacciAir(), 3)
-    jpubs = [jgl.to_fp(int(p)) for p in publics]
-    jair_out, jproof, jopubs = jra.prove_recursive(JFibonacciAir(), jinner,
-                                                   jpubs, 3, JCFG, JCFG)
-    assert opubs == [int(p) for p in jopubs]
-    want = b"".join(np.asarray(x).tobytes()
-                    for x in jax.tree_util.tree_leaves(jproof))
-    assert serialize.payload(oproof) == want
+    return (air, pubs, inner) + ra.prove_recursive(air, inner, pubs, 3, PCFG,
+                                                   PCFG, device="cpu")
+
+
+def test_prove_recursive_payload_equals_reference_and_verifies_both_ways(
+        jax_rec, recursive_proof, fib8_outer_air):
+    """ONE outer proof of FibonacciAir(8)'s verification: the port's CPU
+    payload equals the JAX package's; the port verifier accepts it against
+    outer_air_for's rebuild and refuses a changed public; the JAX verifier
+    accepts the port's proof (its recorded verdict on its own proof, whose
+    payload and publics the port's equal)."""
+    want = jax_rec["prove_recursive"]
+    air, pubs, inner, oair, oproof, opubs = recursive_proof
+    assert_same_payload(inner, want["inner"])
+    assert opubs == want["opubs"]
+    assert_same_payload(oproof, want["payload"])
 
     olog = oair.n_rows.bit_length() - 1
-    vair = ra.outer_air_for(air, 3, PCFG, len(pubs), device="cpu")
+    assert len(pubs) == 3
+    vair = fib8_outer_air
     assert vair.schedule_digest() == oair.schedule_digest()
     ofp = [gl.to_fp(p, "cpu") for p in opubs]
     assert verifier.verify(vair, oproof, ofp, olog, PCFG)
     bad = list(ofp)
     bad[2] = gl.to_fp((opubs[2] + 1) % P, "cpu")
     assert not verifier.verify(vair, oproof, bad, olog, PCFG)
-
-    leaves = [jax.numpy.asarray(x) for pair in convert.proof_to_pairs(oproof)
-              for x in pair]
-    rebuilt = jax.tree_util.tree_unflatten(
-        jax.tree_util.tree_structure(jproof), leaves)
-    assert bool(jverifier.verify(jair_out, rebuilt,
-                                 [jgl.to_fp(p) for p in opubs], olog, JCFG))
+    assert want["jax_verifier_accepts"] is True

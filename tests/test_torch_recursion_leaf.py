@@ -5,19 +5,21 @@ The inner proof is the port's: ``HeaderAir(max_chunks=1)`` (128 rows ×
 799 columns + 188 constant columns, 89 publics) over the leaf's 120-byte
 header (``recursion_leaf.leaf_header``, the bytes of the JAX package's
 scripts/prove_recursion_leaf.py), proved on the CPU at a small inner
-config (rate 1, 2 queries, final_poly_len 4), and carried into the JAX
-package's StarkProof with the tree structure of its ``_zero_proof``. The
-same proof goes through the JAX ``record_stark_verify`` and the port's,
-plain and streamed: the row count, K, the publics and ``schedule_digest``
-must be equal (the digest is the SHA-256 of the constant columns), and
-so must the streamed machine's constant columns and trace.
+config (rate 1, 2 queries, final_poly_len 4); its payload equals the JAX
+package's proof of the same header, which went through the JAX
+``record_stark_verify``, plain and streamed (recorded: tests/
+reference_data/test_torch_recursion_leaf.json, made by tests/
+reference_data/record.py). The port's records the port's proof: the row
+count, K, the publics and ``schedule_digest`` must be equal (the digest
+is the SHA-256 of the constant columns), and so must the streamed
+machine's constant columns and trace.
 
 The JAX ``make_trace`` fills an object array of every cell (262,144 rows
 × 719 columns streamed: minutes), so the streamed trace is compared on a
 seeded sample of 4,096 rows over every column, against the values the
 JAX package's ``make_trace`` puts there, computed from the JAX recording
 alone (its rows, values, sponge snapshots and register allocation;
-``jax_trace_rows``). The plain machine (K = 6,393: a 13.5 GB trace)
+record.py's ``jax_trace_rows``). The plain machine (K = 6,393: a 13.5 GB trace)
 compares its schedule only. ``outer_air_for`` gives the recorded digest,
 and a tampered inner cap leaves zero-pinned rows that the witness cannot
 satisfy. Tolerance: exact equality throughout.
@@ -36,7 +38,6 @@ import pytest
 import torch
 
 from vectorx_tpu.circuits import scale as jscale
-from vectorx_tpu.hashes import poseidon as jps
 from vectorx_tpu.stark import air_header as jah
 from vectorx_tpu.stark import prover as jprover
 from vectorx_tpu.stark import recursion_air as jra
@@ -47,84 +48,48 @@ from vectorx_tpu_torch.stark import recursion_air as ra
 from vectorx_tpu_torch.stark import recursion_leaf as rl
 from vectorx_tpu_torch.stark.air import BaseVecAlgebra
 
+import reference_data as rd
 from oracle import P
-from test_torch_recursion import _record, _to_jax
+from reference_data import inputs
+from reference_data.inputs import sample_rows
+from test_torch_recursion import _record, assert_same_payload
 
 torch.set_num_threads(1)
 
-SMALL = dict(rate_bits=1, num_queries=2, final_poly_len=4)
+SMALL = inputs.LEAF_CFG
 PCFG = prover.StarkConfig(**SMALL)
-JCFG = jprover.StarkConfig(**SMALL)
-LOG_N = 7
-SAMPLE = 4096
+LOG_N = inputs.LEAF_LOG_N
 
 
-def jax_trace_rows(jout, rows) -> np.ndarray:
-    """(num_cols, len(rows)) uint64: the JAX machine's trace at the sorted
-    `rows`, as the JAX package's RecursionAir.make_trace fills it (hash
-    lanes from the sponge snapshots, the final state on pad rows; x3/x7
-    of h + the row's round constants; each register holding its last
-    write from an earlier row; the A/B/C values of recorded rows)."""
-    mb = jout.mb
-    nr = len(mb.rows)
-    rows = [int(r) for r in rows]
-    out = np.zeros((jout.num_cols, len(rows)), dtype=np.uint64)
-    rcs = jps.round_constants()
-    for j, i in enumerate(rows):
-        row = mb.rows[i] if i < nr else None
-        h = mb.hsnap[i] if i < nr else mb.h
-        rc = rcs[row.hround] if row is not None and row.hround >= 0 else None
-        t = [(x + (rc[k] if rc else 0)) % P for k, x in enumerate(h)]
-        x3 = [(v * v % P) * v % P for v in t]
-        x7 = [(a * a % P) * v % P for a, v in zip(x3, t)]
-        out[jout.COL_H:jout.COL_H + 12, j] = h
-        out[jout.COL_X3:jout.COL_X3 + 12, j] = x3
-        out[jout.COL_X7:jout.COL_X7 + 12, j] = x7
-        if row is not None:
-            out[[jout.COL_A, jout.COL_B, jout.COL_C], j] = [
-                row.aval % P, row.bval % P, row.cval % P]
-    regs = [0] * jout.K
-    k = 0
-    for i in range(rows[-1] + 1):
-        while k < len(rows) and rows[k] == i:
-            out[jout.COL_R:jout.COL_R + jout.K, k] = regs
-            k += 1
-        if i < nr:
-            row = mb.rows[i]
-            if row.cell >= 0 and jout.reg[row.cell] >= 0:
-                regs[jout.reg[row.cell]] = mb.vals[row.cell]
-    return out
-
-
-def sample_rows(n: int, seed: int = 5) -> np.ndarray:
-    """SAMPLE seeded rows of n, the first two and the last two included."""
-    rng = np.random.default_rng(seed)
-    return np.unique(np.concatenate([[0, 1, n - 2, n - 1],
-                                     rng.integers(0, n, SAMPLE - 4)]))
-
-
-def assert_trace_sample_equal(oair, jout) -> None:
-    """The port's make_trace against the JAX package's on sampled rows,
-    with the publics in full."""
+def assert_trace_sample_equal(oair, want) -> None:
+    """The port's make_trace against the JAX package's on sampled rows
+    (as recorded), with the publics in full."""
     trace, pubs = oair.make_trace("cpu")
-    assert pubs == list(jout.mb.publics)
+    assert pubs == want["trace_publics"]
     rows = sample_rows(oair.n_rows)
     got = gl.to_u64(trace[:, torch.from_numpy(rows)])
-    assert np.array_equal(got, jax_trace_rows(jout, rows))
+    assert rd.array(got) == want["trace_rows"]
 
 
-def _same_shape(oair, jout) -> None:
-    assert len(oair.mb.rows) == len(jout.mb.rows)
+def _same_shape(oair, want) -> None:
+    assert len(oair.mb.rows) == want["rows"]
     assert (oair.n_rows, oair.K, oair.num_cols, oair.num_consts,
-            oair.has_ram) == (jout.n_rows, jout.K, jout.num_cols,
-                              jout.num_consts, jout.has_ram)
-    assert oair.mb.publics == jout.mb.publics
+            oair.has_ram) == tuple(want["shape"])
+    assert oair.mb.publics == want["publics"]
+
+
+@pytest.fixture(scope="module")
+def jax_leaf():
+    """The JAX package's inner proof and its two machines, as recorded."""
+    return rd.load("test_torch_recursion_leaf",
+                   inputs.test_torch_recursion_leaf())
 
 
 @pytest.fixture(scope="module")
 def leaf_inner():
     """The port's HeaderAir(1) proof of the leaf's header at SMALL."""
     air = ah.HeaderAir(max_chunks=1)
+    assert rl.leaf_header() == inputs.LEAF_HEADER
     trace, publics, _ = air.make_trace(rl.leaf_header(), "cpu")
     pubs = [gl.to_fp(int(p), "cpu") for p in publics]
     proof = prover.prove(air, trace, pubs, PCFG)
@@ -151,39 +116,37 @@ def test_leaf_header_and_configs_are_the_scripts():
     assert ah.NUM_PUBLICS == jah.NUM_PUBLICS
 
 
-def test_header_record_plain_equals_reference(leaf_inner):
+def test_header_record_plain_equals_reference(leaf_inner, jax_leaf):
     """The plain record (every opening a register cell): the schedule.
     Its trace would be 6,432 × 262,144 cells; the streamed test holds
     make_trace."""
     air, proof, publics = leaf_inner
-    jair = jah.HeaderAir(max_chunks=1)
+    assert_same_payload(proof, jax_leaf["inner"])
+    want = jax_leaf["plain"]
     oair = _record(ra, air, proof, publics, LOG_N, PCFG, False)
-    jout = _record(jra, jair, _to_jax(proof, jair, LOG_N), publics, LOG_N,
-                   JCFG, False)
     assert (oair.n_rows, oair.K, oair.has_ram) == (1 << 18, 6393, False)
-    _same_shape(oair, jout)
+    _same_shape(oair, want)
     digest = oair.schedule_digest()
     oair.__dict__.pop("_consts", None)            # 2.9 GB of columns
-    assert digest == jout.schedule_digest()
+    assert digest == want["schedule_digest"]
 
 
-def test_header_record_streamed_equals_reference(leaf_inner):
+def test_header_record_streamed_equals_reference(leaf_inner, jax_leaf):
     """The streamed record (the leaf's mode): schedule, constant columns
     and trace equal the JAX package's; outer_air_for rebuilds the digest
     from the claim shape; every zero-pinned row of the honest machine
     holds, and its constraints vanish on the sampled rows."""
     air, proof, publics = leaf_inner
-    jair = jah.HeaderAir(max_chunks=1)
+    assert_same_payload(proof, jax_leaf["inner"])
+    want = jax_leaf["streamed"]
     oair = _record(ra, air, proof, publics, LOG_N, PCFG, True)
-    jout = _record(jra, jair, _to_jax(proof, jair, LOG_N), publics, LOG_N,
-                   JCFG, True)
     assert (oair.n_rows, oair.K, oair.num_cols, oair.num_consts,
             oair.has_ram) == (1 << 18, 680, 719, 327, True)
-    _same_shape(oair, jout)
-    assert np.array_equal(oair.constant_columns(oair.n_rows),
-                          jout.constant_columns(jout.n_rows))
-    assert oair.schedule_digest() == jout.schedule_digest()
-    assert_trace_sample_equal(oair, jout)
+    _same_shape(oair, want)
+    assert (rd.array(oair.constant_columns(oair.n_rows))
+            == want["constant_columns"])
+    assert oair.schedule_digest() == want["schedule_digest"]
+    assert_trace_sample_equal(oair, want)
     vair = ra.outer_air_for(ah.HeaderAir(max_chunks=1), LOG_N, PCFG,
                             len(publics), stream=True, device="cpu")
     assert vair.schedule_digest() == oair.schedule_digest()

@@ -3,43 +3,34 @@
 The same trace, publics and StarkConfig go through vectorx_tpu.stark (JAX,
 CPU) and vectorx_tpu_torch.stark (torch, CPU). The proofs' serialized
 payloads must be equal byte for byte, each verifier must accept the other
-package's proof, and the port verifier must reject tampered proofs.
+package's proof, and the port verifier must reject tampered proofs. The
+JAX package's proofs and its verifier's verdicts are recorded
+(tests/reference_data/test_torch_stark.json, made by
+tests/reference_data/record.py); with the payloads equal, the JAX verifier's
+verdict on its own proof is its verdict on the port's.
 """
 
-import jax
-import numpy as np
 import pytest
 import torch
 
-from vectorx_tpu.field import goldilocks as jgl
-from vectorx_tpu.stark import prover as jprover
-from vectorx_tpu.stark import serialize as jserialize
-from vectorx_tpu.stark import verifier as jverifier
-from vectorx_tpu.stark.air import FibonacciAir as JFibonacciAir
 from vectorx_tpu_torch import convert
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.stark import prover, serialize, verifier
 from vectorx_tpu_torch.stark.air import Air, FibonacciAir, check_constraints
 
+import reference_data as rd
+from reference_data import inputs
+
 torch.set_num_threads(1)
 
-LOG_N = 5
-# the __graft_entry__.entry config, and the same with grinding
-CONFIGS = {
-    "entry": dict(rate_bits=2, num_queries=6, final_poly_len=4),
-    "pow8": dict(rate_bits=2, num_queries=6, final_poly_len=4, pow_bits=8),
-}
+LOG_N = inputs.STARK_LOG_N
+CONFIGS = inputs.STARK_CONFIGS
 
 
 @pytest.fixture(scope="module")
 def jax_side():
-    """JAX proofs (the expensive part of this module), built once."""
-    trace, publics = JFibonacciAir.make_trace(1 << LOG_N)
-    pubs = [jgl.to_fp(p) for p in publics]
-    proofs = {name: jprover.prove(JFibonacciAir(), trace, pubs,
-                                  jprover.StarkConfig(**kw))
-              for name, kw in CONFIGS.items()}
-    return proofs, pubs
+    """The JAX package's proofs, with its verifier's verdicts, as recorded."""
+    return rd.load("test_torch_stark", inputs.test_torch_stark())
 
 
 @pytest.fixture(scope="module")
@@ -52,13 +43,14 @@ def port_side():
     return proofs, pubs
 
 
-def _jax_payload(proof) -> bytes:
-    return serialize.split_payload(jserialize.serialize_proof(proof))
+def _payload_fields(proof, want) -> list:
+    return rd.payload_fields(serialize.payload(proof), want)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_payload_parity_with_reference(name, jax_side, port_side):
-    assert serialize.payload(port_side[0][name]) == _jax_payload(jax_side[0][name])
+    want = jax_side[name]["payload"]
+    assert _payload_fields(port_side[0][name], want) == want["fields"]
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -66,20 +58,17 @@ def test_port_verifier_accepts_port_and_reference_proofs(name, jax_side, port_si
     cfg = prover.StarkConfig(**CONFIGS[name])
     proof, pubs = port_side[0][name], port_side[1]
     assert verifier.verify(FibonacciAir(), proof, pubs, LOG_N, cfg)
-    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jax_side[0][name])]
+    leaves = rd.payload_planes(jax_side[name]["payload"])
     from_jax = convert.proof_from_pairs(list(zip(leaves[0::2], leaves[1::2])), proof,
                                       "cpu")
     assert verifier.verify(FibonacciAir(), from_jax, pubs, LOG_N, cfg)
 
 
 def test_reference_verifier_accepts_port_proof(jax_side, port_side):
-    jproof = jax_side[0]["entry"]
-    pairs = convert.proof_to_pairs(port_side[0]["entry"])
-    leaves = [jax.numpy.asarray(x) for pair in pairs for x in pair]
-    rebuilt = jax.tree_util.tree_unflatten(
-        jax.tree_util.tree_structure(jproof), leaves)
-    assert bool(jverifier.verify(JFibonacciAir(), rebuilt, jax_side[1], LOG_N,
-                                 jprover.StarkConfig(**CONFIGS["entry"])))
+    want = jax_side["entry"]
+    assert _payload_fields(port_side[0]["entry"], want["payload"]) == (
+        want["payload"]["fields"])
+    assert want["jax_verifier_accepts"] is True
 
 
 def _tampered(proof, field, index):

@@ -10,14 +10,14 @@ hold on the honest trace and fail on the tampers of the JAX package's own
 AIR tests, and the port's proof payload must equal the JAX package's (one
 JAX prove per AIR, at rate_bits=1, num_queries=2, final_poly_len=4).
 
-The JAX prove is the expensive part (eager JAX compiles its programs anew
-for each trace shape, and a process's first prove pays for the programs
-all proves share), so the proves are spread over three files of about
-equal cost, which a run that distributes by file gives to different
-workers. This file holds the cases, the checks (``check_*``, called with
-an AIR's name) and the tests of PoseidonChainAir, ChainedSha256Air and the
-public outputs; MerkleSha256Air is in test_torch_statement_sha256_merkle.py
-and Sha512ChallengeAir in test_torch_statement_sha512.py.
+The JAX package's side (trace, constant columns, publics, looked-up
+columns and proof of each AIR) is recorded, one file per test module
+(tests/reference_data/test_torch_statement_*.json, made by
+tests/reference_data/record.py): the JAX proves are the expensive part.
+This file holds the cases, the checks (``check_*``, called with an AIR's
+name) and the tests of PoseidonChainAir, ChainedSha256Air and the public
+outputs; MerkleSha256Air is in test_torch_statement_sha256_merkle.py and
+Sha512ChallengeAir in test_torch_statement_sha512.py.
 """
 
 import hashlib
@@ -26,15 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from vectorx_tpu.field import goldilocks as jgl
-from vectorx_tpu.stark import air_poseidon as jpos
-from vectorx_tpu.stark import air_sha256_chain as jchain
-from vectorx_tpu.stark import air_sha256_merkle as jmerkle
-from vectorx_tpu.stark import air_sha512 as j512
-from vectorx_tpu.stark import prover as jprover
-from vectorx_tpu.stark import serialize as jserialize
 from vectorx_tpu_torch.circuits import commitments as cm
-from vectorx_tpu_torch.circuits.ed25519 import L_ORDER
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.hashes import poseidon as ps
 from vectorx_tpu_torch.stark import air_poseidon as pos
@@ -44,59 +36,45 @@ from vectorx_tpu_torch.stark import air_sha512 as a512
 from vectorx_tpu_torch.stark import prover, serialize
 from vectorx_tpu_torch.stark.air import check_constraints
 
-from oracle import P
+import reference_data as rd
+from reference_data import inputs
 
 torch.set_num_threads(1)
 
-CFG = dict(rate_bits=1, num_queries=2, final_poly_len=4)
-MSG = b"vectorx precommit message of fifty-three bytes..!#%&("
-RNG = np.random.default_rng(77)
-STATE = [int(x) % P for x in RNG.integers(0, 1 << 64, 12, dtype=np.uint64)]
-KEYS = [RNG.bytes(32) for _ in range(2)]
-LEAVES = [RNG.bytes(32) for _ in range(4)]
-
-
-def _lane(seed):
-    rng = np.random.default_rng(seed)
-    a, r = rng.bytes(32), rng.bytes(32)
-    s = int.from_bytes(rng.bytes(31), "little")
-    h = int.from_bytes(hashlib.sha512(r + a + MSG).digest(), "little") % L_ORDER
-    return (a, r, s, h)
-
-
-def _leaf_words(raw):
-    return [[int.from_bytes(b[4 * i:4 * i + 4], "big") for i in range(8)]
-            for b in raw]
+CFG = inputs.STMT_CFG
+MSG = inputs.STMT_MSG
+STATE = inputs.STMT_STATE
+KEYS = inputs.STMT_KEYS
+LEAVES = inputs.STMT_LEAVES
+_lane = inputs.sha512_lane
 
 
 def _digest(words):
     return b"".join(int(w).to_bytes(4, "big") for w in words)
 
 
-def _build(name, port: bool):
-    """(air, trace, publics) of one package; the port's trace on the CPU."""
-    dev = ("cpu",) if port else ()
+def _build(name):
+    """(air, trace, publics) of the port, the trace on the CPU."""
     if name == "poseidon_chain":
-        mod = pos if port else jpos
-        air = mod.PoseidonChainAir()
-        trace, publics, _ = air.make_trace(STATE, 2, *dev)
+        air = pos.PoseidonChainAir()
+        trace, publics, _ = air.make_trace(STATE, 2, "cpu")
     elif name == "sha256_chain":
-        mod = chain if port else jchain
-        air = mod.ChainedSha256Air(2)
+        air = chain.ChainedSha256Air(2)
         words = air.pubkeys_to_words(KEYS, 2)
-        trace, publics, _ = air.make_trace(words, 2, *dev)
+        trace, publics, _ = air.make_trace(words, 2, "cpu")
     elif name == "sha256_merkle":
-        mod = merkle if port else jmerkle
-        air = mod.MerkleSha256Air(_leaf_words(LEAVES))
-        trace, publics, _ = air.make_trace(*dev)
+        air = merkle.MerkleSha256Air(inputs.leaf_words(LEAVES))
+        trace, publics, _ = air.make_trace("cpu")
     else:
-        mod = a512 if port else j512
-        air = mod.Sha512ChallengeAir([_lane(7)], MSG, B=8)
-        trace, publics = air.make_trace(*dev)
+        air = a512.Sha512ChallengeAir([_lane(7)], MSG, B=8)
+        trace, publics = air.make_trace("cpu")
     return air, trace, [int(p) for p in publics]
 
 
 AIRS = ("poseidon_chain", "sha256_chain", "sha256_merkle", "sha512")
+# AIR -> the test module whose recording holds its JAX side
+MODULE_OF = {name: module for module, names in inputs.STMT_MODULES.items()
+             for name in names}
 # name -> [(column, row, xor mask)]: the tampers of the JAX package's tests
 TAMPERS = {
     "poseidon_chain": [(0, 40, 2)],
@@ -106,33 +84,37 @@ TAMPERS = {
 }
 
 _port_cache = {}
+_jax_cache = {}
 
 
 def _port(name):
     if name not in _port_cache:
-        _port_cache[name] = _build(name, port=True)
+        _port_cache[name] = _build(name)
     return _port_cache[name]
+
+
+def _jax(name):
+    """The JAX package's side of AIR `name`, as recorded."""
+    module = MODULE_OF[name]
+    if module not in _jax_cache:
+        _jax_cache[module] = rd.load(module, inputs.statement(module))
+    return _jax_cache[module][name]
 
 
 def _port_pubs(publics):
     return [gl.to_fp(p, "cpu") for p in publics]
 
 
-def _u64(pair):
-    return (np.asarray(pair[0], np.uint64)
-            | (np.asarray(pair[1], np.uint64) << np.uint64(32)))
-
-
 def check_trace_constants_publics(name):
-    jair, jtrace, jpublics = _build(name, port=False)
+    want = _jax(name)
     air, trace, publics = _port(name)
-    assert publics == jpublics
-    assert trace.shape == (air.num_cols, jtrace[0].shape[1])
-    assert np.array_equal(gl.to_u64(trace), _u64(jtrace))
+    assert publics == want["publics"]
+    assert trace.shape == (air.num_cols, want["trace"]["shape"][1])
+    assert rd.array(gl.to_u64(trace)) == want["trace"]
     n = trace.shape[1]
-    assert np.array_equal(np.asarray(air.constant_columns(n), dtype=np.uint64),
-                          np.asarray(jair.constant_columns(n), dtype=np.uint64))
-    assert air.lookup_range_columns() == jair.lookup_range_columns()
+    assert (rd.array(np.asarray(air.constant_columns(n), dtype=np.uint64))
+            == want["constant_columns"])
+    assert air.lookup_range_columns() == want["lookup_range_columns"]
 
 
 def check_honest_trace(name):
@@ -149,16 +131,13 @@ def check_tampered_trace(name, tamper):
 
 
 def check_payload_parity(name):
-    """One JAX prove and one port prove of the same case."""
-    jair, jtrace, jpublics = _build(name, port=False)
-    jproof = jprover.prove(jair, jtrace, [jgl.to_fp(p) for p in jpublics],
-                           jprover.StarkConfig(**CFG))
-    want = serialize.split_payload(jserialize.serialize_proof(jproof))
+    """One port prove against the recorded JAX prove of the same case."""
+    want = _jax(name)["payload"]
     air, trace, publics = _port(name)
     proof = prover.prove(air, trace, _port_pubs(publics),
                          prover.StarkConfig(**CFG))
     assert (proof.aux_cap is not None) == (name == "sha512")
-    assert serialize.payload(proof) == want
+    assert rd.payload_fields(serialize.payload(proof), want) == want["fields"]
 
 
 # -- PoseidonChainAir, ChainedSha256Air, and what spans the AIRs --------------------

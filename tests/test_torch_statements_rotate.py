@@ -15,9 +15,12 @@ VerificationError; the serialization round trip.
 RotateHeaderAir is new in the port with this bundle, so it is held against
 the JAX package here (tolerance 0): the header parser, the trace, publics,
 digest and constant columns of the same header, and the transition under
-BaseVecAlgebra on 8 seeded random values per column and public. The other
-sub-proofs' AIRs are held to payload parity in the earlier files
-(test_torch_statement_*.py, test_torch_ed25519_*.py).
+BaseVecAlgebra on 8 seeded random values per column and public. The
+JAX package's trace, publics, constant columns and constraint values are
+recorded (tests/reference_data/test_torch_statements_rotate.json, made by
+tests/reference_data/record.py). The other sub-proofs' AIRs are held to
+payload parity in the earlier files (test_torch_statement_*.py,
+test_torch_ed25519_*.py).
 """
 
 import dataclasses
@@ -37,37 +40,27 @@ from vectorx_tpu_torch.stark import statements as st
 from vectorx_tpu_torch.stark.air import check_constraints
 from vectorx_tpu_torch.stark.prover import StarkConfig
 
+import reference_data as rd
 import test_torch_gadget_vec as common
+from reference_data import inputs
+from reference_data.inputs import random_columns
 from test_torch_statements import seeded_keys
 
 torch.set_num_threads(1)
 
 RNG = np.random.default_rng(41)
 CFG = StarkConfig(rate_bits=1, num_queries=4, final_poly_len=4)
-EPOCH_END_BLOCK = 180
+EPOCH_END_BLOCK = inputs.ROT_EPOCH_END_BLOCK
 N_CUR = 1          # current authorities (it signs: 1*3 > 1*2)
 N_NEW = 2          # scheduled new authorities
 MAX_AUTH = 2       # the chains' size, as in tests/test_statements_rotate.py
 SET_ID = 4
 ROUND = 1
-MAX_CHUNKS = 2
-
-
-def make_epoch_end_header(block_number, new_pubkeys):
-    """A SCALE header with a GRANDPA ScheduledChange consensus log."""
-    parent, state_root, extrinsics_root, data_root = (RNG.bytes(32)
-                                                      for _ in range(4))
-    recs = b"".join(pk + b"\x01" + bytes(7) for pk in new_pubkeys)
-    message = (b"\x01" + scale.encode_compact_u32(len(new_pubkeys)) + recs
-               + bytes(4))
-    log = b"\x04" + b"FRNK" + scale.encode_compact_u32(len(message)) + message
-    return (parent + scale.encode_compact_u32(block_number) + state_root
-            + extrinsics_root + b"\x04" + log + data_root)
-
+MAX_CHUNKS = inputs.ROT_MAX_CHUNKS
 
 CUR_KEYS, CUR_PUBS = seeded_keys(RNG, N_CUR)
 NEW_PUBS = seeded_keys(RNG, N_NEW)[1]
-HEADER = make_epoch_end_header(EPOCH_END_BLOCK, NEW_PUBS)
+HEADER = inputs.epoch_end_header(RNG, EPOCH_END_BLOCK, NEW_PUBS)
 
 
 @pytest.fixture(scope="module")
@@ -182,25 +175,36 @@ def test_find_scheduled_change_equal_reference():
 
 
 @pytest.fixture(scope="module")
-def traces():
+def jax_rot():
+    """The JAX package's RotateHeaderAir trace, constants and constraint
+    values of HEADER, as recorded."""
+    return rd.load("test_torch_statements_rotate",
+                   inputs.test_torch_statements_rotate(HEADER))
+
+
+@pytest.fixture(scope="module")
+def traces(jax_rot):
     port = prot.RotateHeaderAir(MAX_CHUNKS).make_trace(HEADER, "cpu")
-    ref = jrot.RotateHeaderAir(MAX_CHUNKS).make_trace(HEADER)
+    start, n_auth, pubkeys = jax_rot["info"]
+    ref = (jax_rot["trace"], jax_rot["publics"],
+           bytes.fromhex(jax_rot["digest"]),
+           (start, n_auth, [bytes.fromhex(p) for p in pubkeys]))
     return port, ref
 
 
 def test_rotate_trace_equal_reference(traces):
     (trace, publics, digest, info), (jtrace, jpublics, jdigest, jinfo) = traces
-    assert np.array_equal(gl.to_u64(trace), common._jax_u64(jtrace))
+    assert rd.array(gl.to_u64(trace)) == jtrace
     assert [int(p) for p in publics] == [int(p) for p in jpublics]
     assert digest == jdigest == hashlib.blake2b(HEADER, digest_size=32).digest()
     assert info == jinfo
 
 
-def test_rotate_constants_and_window_fields_equal_reference(traces):
+def test_rotate_constants_and_window_fields_equal_reference(traces, jax_rot):
     air, jair_ = prot.RotateHeaderAir(MAX_CHUNKS), jrot.RotateHeaderAir(MAX_CHUNKS)
     n = air.n_rows
-    assert np.array_equal(np.asarray(air.constant_columns(n), np.uint64),
-                          np.asarray(jair_.constant_columns(n), np.uint64))
+    assert (rd.array(np.asarray(air.constant_columns(n), np.uint64))
+            == jax_rot["constant_columns"])
     assert (air.num_cols, air.num_publics) == (jair_.num_cols,
                                                jair_.num_publics)
     (_, publics, _, (start, _, _)), _ = traces
@@ -220,18 +224,16 @@ def test_rotate_check_constraints(traces):
     assert not check_constraints(air, bad, pubs)
 
 
-def test_rotate_transition_equal_reference():
-    evals = []
-    for pkg, mod in (("port", prot), ("jax", jrot)):
-        air = mod.RotateHeaderAir(MAX_CHUNKS)
-        k = air.constant_columns(2).shape[0]
-        rng = np.random.default_rng(12)
-        cols = (common.random_columns(rng, air.num_cols, 8),
-                common.random_columns(rng, air.num_cols, 8),
-                common.random_columns(rng, k, 8),
-                common.random_columns(rng, k, 8))
-        pubs = common.random_columns(rng, air.num_publics, 1)[:, 0]
-        evals.append(common.base_eval(air, pkg, cols, pubs))
+def test_rotate_transition_equal_reference(jax_rot):
+    air = prot.RotateHeaderAir(MAX_CHUNKS)
+    k = air.constant_columns(2).shape[0]
+    rng = np.random.default_rng(12)
+    cols = (random_columns(rng, air.num_cols, 8),
+            random_columns(rng, air.num_cols, 8),
+            random_columns(rng, k, 8),
+            random_columns(rng, k, 8))
+    pubs = random_columns(rng, air.num_publics, 1)[:, 0]
+    evals = [common.base_eval(air, cols, pubs), jax_rot["transition"]]
     assert len(evals[0]) == len(evals[1]) == 68
     for port_c, jax_c in zip(*evals):
         common.assert_equal_base(port_c, jax_c)
